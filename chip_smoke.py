@@ -1,0 +1,370 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`pvio_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's hand-written kernels from `pvio_torch/csrc/` and drives
+the port's per-frame path at the production size (Config() defaults,
+float32, planes on: 480x752 frames, 150 keypoint slots, 9 frame slots x
+256 tracks x 8 planes, 64 IMU samples) through the entry points a user
+calls: `DeviceKernels.first_frame_step`, `frame_step` and `pnp_step`.
+
+Phases; each raises on failure, so any failure exits non-zero:
+  1. device and build: the card's name and power limit, the kernels built
+     with nvcc (one process per source, started together);
+  2. kernel K1 (Shi-Tomasi response) against its plain PyTorch version on
+     the card over the full image at 480x752, 240x376 and 481x755, the
+     detections it feeds, and its time beside the plain version's and the
+     card's bound;
+  3. the main path: the bench scene, first_frame_step, the slot -> track
+     association, then N_FRAMES x (frame_step -> association -> pnp_step)
+     chaining the tail pose; launch counts are zeroed just before and read
+     just after, and K1 must have launched once per frame;
+  4. the same chain through the port on the CPU at float32, and the
+     agreement of the two runs;
+  5. the kernel table (JSON), the nvidia-smi line and, last, the result.
+
+Exits non-zero, printing no result, when CUDA is not available or the
+port's package is not beside this script.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+N_FRAMES = 12
+KEY0 = (648, 1)                 # threefry key data of the first frame_step
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+
+# K1 against its plain version: the kernel sums in another order in float32
+K1_REL_TOL, K1_ABS_TOL = 1e-6, 1e-9
+# card vs CPU chain, both float32: the kernel, cuBLAS and the CPU round
+# differently, and a KLT/RANSAC/detection decision can flip on a hair.
+# Measured on an H100 (700 W): agreement 1.0, median |dkp| 7.6e-6 px,
+# final |dp| 1.7e-7 m; the bounds keep a margin of ~100x.
+MIN_STATUS_AGREEMENT = 0.995
+MAX_MEDIAN_KP_PX = 1e-3
+MAX_FINAL_DP_M = 1e-5
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def gpu_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps=60, warmup=5):
+    """Median milliseconds of fn() on the current stream, CUDA events around
+    each call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps=60, warmup=5):
+    """Mean device time of fn() in milliseconds: the durations of the CUDA
+    kernels it launches, summed over a torch.profiler trace of `reps`
+    calls. Falls back to cuda_ms when the trace holds no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return cuda_ms(fn, reps, warmup)
+    return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
+
+
+# ---------------------------------------------------------------------------
+# the bench scene (bench.py's coupled chain, built with the port's numpy copy)
+
+
+def bench_inputs(cfg, n_frames):
+    """Window, renders and IMU span of the bench scene (float32 numpy and
+    port tensors on the CPU). Returns (window, host dict)."""
+    import torch
+
+    from pvio_torch.io import synthetic
+
+    n_kf = cfg.window_frame_capacity - 1
+    gap = 4
+    scene = synthetic.make_scene(duration=6.0, fps=20.0, imu_rate=200.0,
+                                 n_points=280, n_plane_points=160, seed=648)
+    kf = list(range(0, n_kf * gap, gap))
+    w, _, info = synthetic.solver_window_from_scene(
+        scene, kf, F_cap=cfg.window_frame_capacity, T_cap=cfg.track_capacity,
+        P_cap=cfg.plane_capacity, dtype=torch.float32, kp_noise=0.002,
+        imu_cap=cfg.imu_buffer_capacity)
+    w, n_members = synthetic.flag_plane_tracks(w, scene, info)
+    if n_members < cfg.plane_min_tracks:
+        raise RuntimeError(f"bench window has {n_members} plane tracks")
+    base = kf[-1]
+    images = np.stack([
+        (synthetic.render_frame(scene, base + fi, cfg.K, cfg.image_size) * 255 + 0.5)
+        .astype(np.uint8) for fi in range(n_frames + 1)])
+    kp, vis = synthetic.project_points(scene, np.array([base]))
+    chosen = np.asarray(info["chosen"])
+    fx, fy, cx, cy = cfg.K[0, 0], cfg.K[1, 1], cfg.K[0, 2], cfg.K[1, 2]
+    col_px = np.stack([kp[0, chosen, 0] * fx + cx, kp[0, chosen, 1] * fy + cy], axis=-1)
+    sel = (scene.imu_t >= scene.frame_t[base]) & (scene.imu_t < scene.frame_t[base + 1])
+    host = dict(images=images, col_px=col_px, col_vis=vis[0, chosen],
+                pnp_imu=(scene.imu_t[sel], scene.gyro[sel], scene.accel[sel]),
+                t_new=float(scene.frame_t[base + 1]),
+                tail_idx=len(kf) - 1, n_tracks=len(chosen))
+    return w, host
+
+
+def associate(kp0, mask0, col_px, col_vis, T_cap):
+    """bench.py's one-time detector-slot -> window-column association:
+    greedy nearest-first within 3 px. Returns slot_of_col (T_cap,)."""
+    slot_of_col = np.full(T_cap, -1, np.int64)
+    live = np.nonzero(mask0)[0]
+    if len(live):
+        d2 = ((kp0[live][:, None, :] - col_px[None, :, :]) ** 2).sum(-1)
+        d2[:, ~col_vis] = np.inf
+        used = set()
+        for si in np.argsort(d2.min(axis=1)):
+            ci = int(np.argmin(d2[si]))
+            if d2[si, ci] < 3.0 ** 2 and ci not in used:
+                slot_of_col[ci] = live[si]
+                used.add(ci)
+    return slot_of_col
+
+
+def to_device(nt, device):
+    """NamedTuple of tensors (nested ones included) onto a device."""
+    return type(nt)(*(to_device(x, device) if hasattr(x, "_fields") else x.to(device)
+                      for x in nt))
+
+
+def run_chain(kern, w, host, n_frames):
+    """first_frame_step, association, then n_frames x (frame_step ->
+    association -> pnp_step) with the tail pose chained. Returns per-frame
+    records (numpy) and host-clock step times."""
+    import torch
+
+    from pvio_torch.frontend import detect
+
+    dev, dt = kern.device, kern.dtype
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    w = to_device(w, dev)
+    images = host["images"]
+    pyr, resp, kp, mask = kern.first_frame_step(images[0])
+    slot_of_col = associate(kp.cpu().numpy(), mask.cpu().numpy(), host["col_px"],
+                            host["col_vis"], w.kp.shape[1])
+    n_assoc = int((slot_of_col >= 0).sum())
+    slot_d = torch.as_tensor(slot_of_col, device=dev)
+    sc = torch.clamp(slot_d, 0, kp.shape[0] - 1)
+    alive = slot_d >= 0
+    fx, fy, cx, cy = (float(v) for v in kern.cfg.camera_intrinsic)
+    kinv_scale = torch.tensor([1.0 / fx, 1.0 / fy], dtype=dt, device=dev)
+    kinv_off = torch.tensor([cx, cy], dtype=dt, device=dev)
+    imu = kern.pad_imu_host(*host["pnp_imu"])
+    dq_id = np.array([1.0, 0, 0, 0])
+    tail = host["tail_idx"]
+    rec = dict(status=[], kp=[], p=[], q=[], rounds=[], frame_ms=[], pnp_ms=[],
+               n_assoc=n_assoc, alive=[])
+    for i in range(n_frames):
+        sync()
+        t0 = time.perf_counter()
+        pyr, resp, kp, mask, status, det = kern.frame_step(
+            pyr, resp, images[i + 1], kp, mask, dq_id,
+            np.array([KEY0[0], KEY0[1] + i], np.uint32))
+        sync()
+        t1 = time.perf_counter()
+        rec["rounds"].append(detect.LAST_ROUNDS)
+        alive = alive & mask[sc] & (slot_d >= 0)
+        z = (kp[sc] - kinv_off) * kinv_scale
+        q1, p1, v1, bg1, ba1 = kern.pnp_step(
+            w, *imu, host["t_new"], tail, z, alive, alive, 0)[:5]
+        q, p = w.q.clone(), w.p.clone()
+        q[tail], p[tail] = q1, p1
+        w = w._replace(q=q, p=p)
+        sync()
+        t2 = time.perf_counter()
+        rec["frame_ms"].append(1e3 * (t1 - t0))
+        rec["pnp_ms"].append(1e3 * (t2 - t1))
+        rec["status"].append(status.cpu().numpy())
+        rec["kp"].append(kp.cpu().numpy())
+        rec["p"].append(p1.cpu().numpy())
+        rec["q"].append(q1.cpu().numpy())
+        rec["alive"].append(int(alive.sum()))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke run needs one NVIDIA card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "pvio_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: the pvio_torch package is not beside {Path(__file__).name}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.frontend import detect
+    from pvio_torch.io.config import Config
+    from pvio_torch.ops import stencil
+    from pvio_torch.utils import cuda_build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    smi = gpu_line()
+    kind = torch.cuda.get_device_name(0)
+
+    # 1. device and build ---------------------------------------------------
+    log(f"[1] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    t0 = time.perf_counter()
+    built = cuda_build.build_all()
+    stencil.build()
+    log(f"[1] built {len(built)} kernel source(s) in {time.perf_counter() - t0:.3f} s")
+    for src, (_, out) in built.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[1]   {src.name}: {line.strip()}")
+
+    cfg = Config()
+    cfg.dtype = "float32"
+    cfg.enable_plane_constraint = True
+    kern = DeviceKernels(cfg)                # CUDA, or raises
+
+    w, host = bench_inputs(cfg, N_FRAMES)
+    H, W = host["images"].shape[1:]
+
+    # 2. K1 against its plain version -----------------------------------------
+    pyr0 = kern.preprocess(host["images"][0])
+    g = torch.Generator(device="cpu").manual_seed(648)
+    k1_cases = [("bench render", pyr0[0].contiguous())] + [
+        (f"uniform {h}x{w_}", torch.rand(h, w_, generator=g).to(dev))
+        for h, w_ in [(480, 752), (240, 376), (481, 755)]]
+    k1_err_main = None
+    for name, img in k1_cases:
+        before = stencil.LAUNCHES
+        out = stencil.shi_tomasi_response(img)
+        torch.cuda.synchronize()
+        if stencil.LAUNCHES != before + 1:
+            raise RuntimeError("K1 wrapper did not count its launch")
+        ref = detect.shi_tomasi_response(img)
+        err = float((out - ref).abs().max())
+        lim = K1_REL_TOL * float(ref.abs().max()) + K1_ABS_TOL
+        if not (err <= lim and torch.isfinite(out).all()):
+            raise RuntimeError(f"K1 disagrees with its plain version on {name}: {err} > {lim}")
+        if name == "bench render":
+            k1_err_main = err
+        log(f"[2] K1 {name} {tuple(img.shape)}: max|kernel - plain| = {err:.3e} (limit {lim:.3e})")
+    img0 = pyr0[0].contiguous()
+    r_k, r_p = stencil.shi_tomasi_response(img0), detect.shi_tomasi_response(img0)
+    xy_k, m_k = kern.detect(img0, torch.zeros(1, 2, device=dev), torch.zeros(1, dtype=torch.bool, device=dev), r_k)
+    xy_p, m_p = kern.detect(img0, torch.zeros(1, 2, device=dev), torch.zeros(1, dtype=torch.bool, device=dev), r_p)
+    dxy = float((xy_k - xy_p).abs().max())
+    if not (torch.equal(m_k, m_p) and dxy <= 1e-3):
+        raise RuntimeError(f"detections from K1 and plain responses differ (max {dxy} px)")
+    log(f"[2] detections from K1 / plain responses: {int(m_k.sum())} identical keypoints "
+        f"(max |dxy| {dxy:.2e} px)")
+    k1_ms = device_ms(lambda: stencil.shi_tomasi_response(img0))
+    plain_ms = device_ms(lambda: detect.shi_tomasi_response(img0))
+    k1_call_ms = cuda_ms(lambda: stencil.shi_tomasi_response(img0))
+    plain_call_ms = cuda_ms(lambda: detect.shi_tomasi_response(img0))
+    nbytes, nflops = stencil.cost(H, W)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nflops / FP32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    log(f"[2] K1 at {H}x{W}: device {k1_ms:.6f} ms/launch (per call, host launch included: "
+        f"{k1_call_ms:.6f} ms); plain version device {plain_ms:.6f} ms (per call "
+        f"{plain_call_ms:.6f} ms); bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, "
+        f"{nflops} flop); no single PyTorch call computes this function (library_ms null)")
+    torch.cuda.synchronize()
+
+    # 3. the main path ---------------------------------------------------------
+    stencil.LAUNCHES = 0
+    rec = run_chain(kern, w, host, N_FRAMES)
+    torch.cuda.synchronize()
+    launches = {"shi_tomasi": stencil.LAUNCHES}
+    if rec["n_assoc"] < 50:
+        raise RuntimeError(f"association matched {rec['n_assoc']} < 50 window tracks")
+    if launches["shi_tomasi"] != N_FRAMES + 1:
+        raise RuntimeError(f"K1 launched {launches['shi_tomasi']} times in "
+                           f"{N_FRAMES + 1} frames (want one per frame)")
+    tracked = [int(s.sum()) for s in rec["status"]]
+    if not all(np.isfinite(p).all() and np.isfinite(q).all() for p, q in zip(rec["p"], rec["q"])):
+        raise RuntimeError("non-finite pose on the main path")
+    if min(tracked) <= 0 or min(rec["alive"]) <= 0:
+        raise RuntimeError(f"tracking died: tracked {tracked}, associated {rec['alive']}")
+    fs_ms = statistics.median(rec["frame_ms"][1:])
+    pnp_ms = statistics.median(rec["pnp_ms"][1:])
+    log(f"[3] main path: {rec['n_assoc']} tracks associated, {N_FRAMES} frames, K1 launches "
+        f"{launches['shi_tomasi']}, tracked slots {tracked}, associated alive {rec['alive']}")
+    log(f"[3] detection rounds per frame {rec['rounds']}")
+    log(f"[3] frame_step ms {[round(x, 3) for x in rec['frame_ms']]}")
+    log(f"[3] pnp_step ms {[round(x, 3) for x in rec['pnp_ms']]}")
+    log(f"[3] median (first frame excluded): frame_step {fs_ms:.3f} ms, pnp_step {pnp_ms:.3f} ms")
+
+    # 4. card vs CPU -------------------------------------------------------------
+    torch.set_num_threads(max(1, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    rec_cpu = run_chain(DeviceKernels(cfg, device="cpu"), w, host, N_FRAMES)
+    agree = float(np.mean([np.mean(a == b) for a, b in zip(rec["status"], rec_cpu["status"])]))
+    dkp = np.concatenate([np.linalg.norm(a - b, axis=-1)[sa & sb] for a, b, sa, sb in zip(
+        rec["kp"], rec_cpu["kp"], rec["status"], rec_cpu["status"])])
+    med_dkp = float(np.median(dkp)) if dkp.size else float("inf")
+    dp = float(np.linalg.norm(rec["p"][-1] - rec_cpu["p"][-1]))
+    log(f"[4] CPU chain {time.perf_counter() - t0:.1f} s: status agreement {agree:.6f}, "
+        f"median |dkp| {med_dkp:.3e} px over {dkp.size} slot-frames, max |dkp| "
+        f"{float(dkp.max()) if dkp.size else float('nan'):.3e}, final |dp| {dp:.3e} m")
+    if not (agree >= MIN_STATUS_AGREEMENT and med_dkp <= MAX_MEDIAN_KP_PX and dp <= MAX_FINAL_DP_M):
+        raise RuntimeError("card and CPU runs of the port disagree beyond the stated bounds")
+
+    # 5. summary -----------------------------------------------------------------
+    kernels = [dict(name="shi_tomasi", route="cuda", source="pvio_torch/csrc/shi_tomasi.cu",
+                    replaces="pvio_tpu/ops/stencil.py:28", launches=launches["shi_tomasi"],
+                    max_abs_err=k1_err_main, ms=k1_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None)]
+    log(f"[5] total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,273 @@
+"""Per-frame device steps of the VIO pipeline on PyTorch.
+
+Matches the frontend and motion halves of `pvio_tpu/core/kernels.py`:
+`DeviceKernels` with `preprocess`, `predict_kp`, `first_frame_step`,
+`frame_step`, `frame_step_nodetect` (`kernels.py:149-296`),
+`plane_points` and `pnp_step` (`kernels.py:384-478`), plus
+`pad_imu_host`. The keyframe steps (`ba_step`, `marg_step`, `kf_step`,
+`kf_step_chained`) wait for the next slice.
+
+The engine runs on one device. `DeviceKernels(cfg)` means CUDA and raises
+when CUDA is absent; the CPU is used only when the caller passes
+`device="cpu"` (the parity tests). The dtype follows `cfg.dtype`. On a
+CUDA device the corner response is kernel K1 (`ops/stencil.py`); there is
+no fallback to the plain version there.
+"""
+
+import numpy as np
+import torch
+
+from pvio_torch.estimation import pnp as pnp_mod
+from pvio_torch.estimation.factors import plane_cast_point
+from pvio_torch.frontend import detect as detect_mod
+from pvio_torch.frontend import image as image_mod
+from pvio_torch.frontend import klt as klt_mod
+from pvio_torch.frontend import ransac as ransac_mod
+from pvio_torch.geometry import camera, lie
+from pvio_torch.imu import preintegration as pre
+from pvio_torch.map import window as win
+from pvio_torch.ops import stencil
+
+_PYRAMID_LEVELS = 2      # 3 images: full, /2, /4 (kernels.py:145-149)
+
+
+def resolve_device(device=None):
+    """`None` means CUDA, which must exist; anything else is taken as
+    given. Also pins full-precision float32 matmuls and convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("pvio_torch: CUDA is not available; pass "
+                               "device='cpu' to run on the CPU explicitly")
+        device = "cuda"
+    return torch.device(device)
+
+
+class DeviceKernels:
+    """The per-frame device steps, built once per engine with the static
+    shapes and constants of a Config."""
+
+    def __init__(self, cfg, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if cfg.dtype not in ("float32", "float64"):
+            raise ValueError(f"unsupported Config.dtype {cfg.dtype!r}")
+        self.dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
+        dt, dev = self.dtype, self.device
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float64), dtype=dt, device=dev)
+
+        self.extr = win.Extrinsics(q_bc=t(cfg.q_bc), p_bc=t(cfg.p_bc),
+                                   q_bi=t(cfg.q_bi), p_bi=t(cfg.p_bi))
+        self.K = t(cfg.K)
+        self.noise = pre.ImuNoise(cov_w=t(cfg.imu_cov_g), cov_a=t(cfg.imu_cov_a),
+                                  cov_bg=t(cfg.imu_cov_bg), cov_ba=t(cfg.imu_cov_ba))
+        self.pnp_cfg = pnp_mod.PnPConfig(
+            iterations=cfg.solver_iteration_limit,
+            kp_sqrt_inv_cov=cfg.kp_sqrt_inv_cov,
+            use_inertial=True,
+            cauchy_scale=float(getattr(cfg, "cauchy_scale", 1.0)),
+        )
+        self.fb_px = float(getattr(cfg, "feature_tracker_fb_threshold", 0.0))
+        self.assoc = bool(getattr(cfg, "preint_assoc", True))
+
+    # ------------------------------------------------------------------
+    def _to(self, x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def preprocess(self, img):
+        """uint8 (or float) (H, W) -> 3-image pyramid (CLAHE or min-max
+        normalized level 0)."""
+        img = self._to(img)
+        if img.dtype == torch.uint8:
+            img = img.to(self.dtype) * torch.tensor(1.0 / 255.0, dtype=self.dtype,
+                                                    device=self.device)
+        else:
+            img = img.to(self.dtype)
+        img = image_mod.clahe(img) if self.cfg.feature_tracker_clahe else image_mod.normalize(img)
+        return tuple(image_mod.build_pyramid(img, _PYRAMID_LEVELS))
+
+    def response_of(self, img0):
+        """Corner response of the level-0 image: kernel K1 on CUDA, the
+        plain version on the CPU. CLAHE crops its tile-padded result, so
+        level 0 is a strided view unless the tiles divide the image."""
+        return stencil.shi_tomasi_response(img0.contiguous())
+
+    def detect(self, img0, existing, existing_mask, response):
+        return detect_mod.detect_keypoints(
+            img0,
+            max_keypoints=self.cfg.feature_tracker_max_keypoint_detection,
+            min_distance=self.cfg.feature_tracker_min_keypoint_distance,
+            existing_xy=existing, existing_mask=existing_mask,
+            border=20, response=response)
+
+    def predict_kp(self, kp, mask, dq_cam):
+        """Gyro-predicted keypoints: rotate each bearing by the inter-frame
+        camera rotation dq_cam (4,)."""
+        z = camera.remove_k(kp, self.K)
+        b = torch.cat([z, torch.ones_like(z[..., :1])], dim=-1)
+        b2 = lie.quat_rotate(lie.quat_conj(dq_cam)[None, :], b)
+        zs = torch.where(torch.abs(b2[..., 2:3]) < 1e-6,
+                         torch.full_like(b2[..., 2:3], 1e-6), b2[..., 2:3])
+        out = camera.apply_k(b2[..., :2] / zs, self.K)
+        return torch.where(mask[:, None], out, kp)
+
+    def first_frame_step(self, img):
+        """Preprocess + detection. Returns (pyr, resp, det_kp, det_mask)."""
+        pyr = self.preprocess(img)
+        resp = self.response_of(pyr[0])
+        det_kp, det_mask = self.detect(
+            pyr[0], torch.zeros((1, 2), dtype=self.dtype, device=self.device),
+            torch.zeros(1, dtype=torch.bool, device=self.device), resp)
+        return pyr, resp, det_kp, det_mask
+
+    def frame_step(self, pyr_prev, resp_prev, img_next, kp_prev, mask_prev,
+                   dq_cam, key_data, with_detect=True):
+        """Fused per-frame frontend: preprocess, corner response,
+        gyro-predicted pyramidal KLT, F-RANSAC gate, detection and the
+        keypoint merge. key_data: (2,) uint32 threefry key data.
+
+        Returns (pyr_next, resp_next, kp_merged, mask_merged, status,
+        det_mask): tracked keypoints stay in their rows, free rows take the
+        fresh detections in ascending-row order."""
+        cfg = self.cfg
+        kp_prev = self._to(kp_prev, self.dtype)
+        mask_prev = self._to(mask_prev, torch.bool)
+        dq_cam = self._to(dq_cam, self.dtype)
+        pyr_next = self.preprocess(img_next)
+        resp_next = self.response_of(pyr_next[0])
+        guess = (self.predict_kp(kp_prev, mask_prev, dq_cam)
+                 if cfg.feature_tracker_predict_keypoints else kp_prev)
+        kp_new, status = klt_mod.track_keypoints(
+            list(pyr_prev), list(pyr_next), kp_prev, guess, mask_prev,
+            resp_prev, resp_next, border=20.0, fb_threshold=self.fb_px)
+        # fundamental-matrix gate, applied with >= 8 survivors and inliers
+        _, inl, count = ransac_mod.find_fundamental(
+            key_data, kp_prev, kp_new, status, threshold=1.0)
+        gate_on = (torch.sum(status) >= 8) & (count >= 8)
+        status = torch.where(gate_on, status & inl, status)
+        Kmax = kp_new.shape[0]
+        kp_kept = torch.where(status[:, None], kp_new, torch.zeros_like(kp_new))
+        if not with_detect:
+            return (pyr_next, resp_next, kp_kept, status, status,
+                    torch.zeros(Kmax, dtype=torch.bool, device=self.device))
+        det_kp, det_mask = self.detect(pyr_next[0], kp_new, status, resp_next)
+        kp_merged, mask_merged = _merge(kp_kept, status, det_kp, det_mask)
+        return pyr_next, resp_next, kp_merged, mask_merged, status, det_mask
+
+    def frame_step_nodetect(self, pyr_prev, resp_prev, img_next, kp_prev,
+                            mask_prev, dq_cam, key_data):
+        """`frame_step` without detection: det_mask all false."""
+        return self.frame_step(pyr_prev, resp_prev, img_next, kp_prev, mask_prev,
+                               dq_cam, key_data, with_detect=False)
+
+    # ------------------------------------------------------------------
+    def plane_points(self, w, x_world):
+        """Replace plane-track landmarks with their plane ray-casts, unless
+        the ray is within 20 degrees of parallel to the plane or casts
+        behind the camera."""
+        extr = self.extr
+        P = w.plane_mask.shape[0]
+        T = w.kp.shape[1]
+        pid = torch.clamp(w.plane_id, 0, P - 1)
+        is_plane = ((w.track_flags & win.TF_PLANE) != 0) & (w.plane_id >= 0)
+        q_ref = w.q[w.ref_frame]
+        p_ref = w.p[w.ref_frame]
+        q_wc = lie.quat_mul(q_ref, extr.q_bc.expand_as(q_ref))
+        o = p_ref + lie.quat_rotate(q_ref, extr.p_bc.expand_as(p_ref))
+        z_ref = w.kp[w.ref_frame, torch.arange(T, device=w.kp.device)]
+        bearing = lie.quat_rotate(q_wc, torch.cat([z_ref, torch.ones_like(z_ref[:, :1])], dim=-1))
+        n = w.plane_normal[pid]
+        cast = plane_cast_point(n, w.plane_distance[pid], o, bearing)
+        denom = torch.sum(n * bearing, dim=-1)
+        not_par = torch.abs(denom) >= (torch.linalg.norm(bearing, dim=-1)
+                                       * float(np.sin(np.deg2rad(20.0))))
+        s_ray = torch.sum((cast - o) * bearing, dim=-1)
+        use_cast = is_plane & not_par & (s_ray > 0)
+        return torch.where(use_cast[:, None], cast, x_world)
+
+    def pnp_step(self, w, tp, wp, ap, mp, t_new, tail_idx, z_obs, pnp_mask,
+                 obs_new, kf_idx):
+        """Fused per-frame motion step: preintegrate the tail -> new IMU span
+        at the tail's bias, predict, form landmarks (plane tracks
+        ray-cast), motion-only VI PnP, virtual-view triangulation of fresh
+        tracks and the rotation-compensated 80th-percentile parallax
+        against keyframe kf_idx. Returns (q1, p1, v1, bg1, ba1, delta_q,
+        inv_d, tri_ok, p80, n_common)."""
+        cfg, extr, dt = self.cfg, self.extr, self.dtype
+        tp, wp, ap = (self._to(x, dt) for x in (tp, wp, ap))
+        mp = self._to(mp, torch.bool)
+        z_obs = self._to(z_obs, dt)
+        pnp_mask = self._to(pnp_mask, torch.bool)
+        obs_new = self._to(obs_new, torch.bool)
+        tail_q, tail_p, tail_v = w.q[tail_idx], w.p[tail_idx], w.v[tail_idx]
+        tail_bg, tail_ba = w.bg[tail_idx], w.ba[tail_idx]
+        delta = pre.preintegrate(tp, wp, ap, mp, t_new, tail_bg, tail_ba,
+                                 self.noise, assoc=self.assoc)
+        q0, p0, v0, bg0, ba0 = pre.predict(delta, tail_q, tail_p, tail_v, tail_bg, tail_ba)
+        x_world = win.landmark_points(w, extr)
+        if cfg.enable_plane_constraint and bool(getattr(cfg, "pnp_use_plane_points", True)):
+            x_world = self.plane_points(w, x_world)
+        q1, p1, v1, bg1, ba1 = pnp_mod.solve_pnp(
+            q0, p0, v0, bg0, ba0, tail_q, tail_p, tail_v, tail_bg, tail_ba,
+            delta, tail_bg, tail_ba, x_world, z_obs, pnp_mask, extr, self.pnp_cfg)
+        inv_d, tri_ok = win.triangulate_tracks_virtual(w, extr, q1, p1, z_obs, obs_new)
+        # keyframe statistic: camera rotation tail -> new through extrinsics
+        qm, qc = lie.quat_mul, lie.quat_conj
+        qij = qc(qm(qm(qm(qc(extr.q_bc), extr.q_bi), delta.q),
+                    qm(qc(extr.q_bi), extr.q_bc)))
+        zi = w.kp[kf_idx]
+        b2 = lie.quat_rotate(qij[None, :], torch.cat([zi, torch.ones_like(zi[:, :1])], dim=-1))
+        zsafe = torch.where(torch.abs(b2[..., 2:3]) < 1e-6,
+                            torch.full_like(b2[..., 2:3], 1e-6), b2[..., 2:3])
+        pi = b2[..., :2] / zsafe
+        f = torch.stack([self.K[0, 0], self.K[1, 1]])
+        par = torch.linalg.norm((pi - z_obs) * f, dim=-1)
+        common = (w.obs_mask[kf_idx] & w.frame_mask[kf_idx] & obs_new
+                  & (torch.abs(b2[..., 2]) >= 1e-6))
+        n_common = torch.sum(common)
+        vals, _ = torch.sort(torch.where(common, par, torch.full_like(par, torch.inf)))
+        idx = torch.clamp(n_common * 4 // 5, 0, par.shape[0] - 1)
+        p80 = torch.where(n_common > 0, vals[idx], torch.full_like(vals[0], torch.inf))
+        return q1, p1, v1, bg1, ba1, delta.q, inv_d, tri_ok, p80, n_common
+
+    # ------------------------------------------------------------------
+    def pad_imu_host(self, ts, ws, accs):
+        """Pad raw IMU samples to the static buffer size (numpy)."""
+        N = self.cfg.imu_buffer_capacity
+        npdt = np.float32 if self.dtype == torch.float32 else np.float64
+        n = min(len(ts), N)
+        tp = np.zeros(N, npdt)
+        wp = np.zeros((N, 3), npdt)
+        ap = np.zeros((N, 3), npdt)
+        mp = np.zeros(N, bool)
+        tp[:n] = ts[:n]
+        wp[:n] = ws[:n]
+        ap[:n] = accs[:n]
+        mp[:n] = True
+        return tp, wp, ap, mp
+
+
+def _merge(kp_kept, status, det_kp, det_mask):
+    """In-graph keypoint merge (`kernels.py:266-275`): free rows (status
+    false), in ascending order, take the first min(#detections, #free)
+    detections in detection order. Returns (kp_merged, mask_merged).
+
+    The reference's `jnp.nonzero(size, fill_value)` is a stable sort that
+    brings the True rows first, and its `.at[rows].set(mode="drop")` is a
+    scatter into one extra sink row that is then cut off."""
+    Kmax = status.shape[0]
+    dev = status.device
+    ar = torch.arange(Kmax, device=dev)
+    n_fill = torch.minimum(torch.sum(det_mask), Kmax - torch.sum(status))
+    free_idx = torch.sort((status).to(torch.int32), stable=True).indices
+    det_idx = torch.sort((~det_mask).to(torch.int32), stable=True).indices
+    det_idx = torch.where(ar < torch.sum(det_mask), det_idx, torch.full_like(det_idx, Kmax - 1))
+    fill_rows = torch.where(ar < n_fill, free_idx, torch.full_like(free_idx, Kmax))
+    kp_out = torch.cat([kp_kept, kp_kept.new_zeros(1, 2)], dim=0)
+    kp_out[fill_rows] = det_kp[det_idx]
+    mask_out = torch.cat([status, status.new_zeros(1)], dim=0)
+    mask_out[fill_rows] = True
+    return kp_out[:Kmax], mask_out[:Kmax]

@@ -1,0 +1,84 @@
+"""Fixed-budget 8-point F-RANSAC, the post-KLT outlier gate.
+
+Matches `pvio_tpu/frontend/ransac.py`: `_sample_indices`, `_ge_solve` and
+`find_fundamental`. The hypothesis batch is drawn with the port's
+bit-exact threefry `uniform` (`utils/threefry.py`) from the same key data,
+so the port scores the very hypotheses the reference scores. The uniform
+draw uses the pipeline dtype, as the reference's default-dtype draw does
+(float64 under the tests' x64, float32 in production). `find_essential`,
+`find_homography` and `find_plane` wait for the initializer slice.
+"""
+
+import torch
+
+from pvio_torch.geometry import essential as ess
+from pvio_torch.utils import threefry
+
+
+def _sample_indices(key_data, n_hyp, n_sample, mask, dtype):
+    """(n_hyp, n_sample) indices drawn from the valid entries of mask:
+    the n_sample largest uniform keys per row, ties by lower index."""
+    N = mask.shape[0]
+    keys = threefry.uniform(key_data, (n_hyp, N), dtype, device=mask.device)
+    keys = torch.where(mask[None, :], keys, torch.full_like(keys, -1.0))
+    _, idx = torch.sort(keys, dim=-1, descending=True, stable=True)
+    return idx[:, :n_sample]
+
+
+def _ge_solve(A, b):
+    """Batched unpivoted Gaussian elimination for small systems
+    A (..., n, n) x = b (..., n)."""
+    n = A.shape[-1]
+    M = torch.cat([A, b[..., None]], dim=-1)             # (..., n, n+1)
+    for k in range(n):
+        piv = M[..., k, k]
+        piv = torch.where(torch.abs(piv) < 1e-12, torch.full_like(piv, 1e-12), piv)
+        row_k = M[..., k, :] / piv[..., None]
+        M = M.clone()
+        M[..., k, :] = row_k
+        fac = M[..., :, k].clone()
+        fac[..., k] = 0.0
+        M = M - fac[..., None] * row_k[..., None, :]
+    return M[..., :, n]
+
+
+# fixed generic normalization covector of the bordered 8-point system
+_F_NORM_C = (1.0, 0.35, -0.6, 0.2, 1.1, 0.15, -0.8, 0.4, 0.55)
+
+
+def find_fundamental(key_data, x1, x2, mask, threshold=1.0, n_hyp=128):
+    """8-pt RANSAC for F on pixel coords. key_data: (2,) uint32 threefry
+    key data. Returns (F, inlier_mask, count)."""
+    dtype, dev = x1.dtype, x1.device
+    thr = 2.0 * 3.84 * threshold * threshold
+    idx = _sample_indices(key_data, n_hyp, 8, mask, dtype)   # (H, 8)
+    a = x1[idx]                                              # (H, 8, 2)
+    b = x2[idx]
+    ca, cb = torch.mean(a, dim=1), torch.mean(b, dim=1)      # (H, 2)
+    sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=dtype, device=dev))
+    sa = sqrt2 / torch.clamp(torch.mean(torch.linalg.norm(a - ca[:, None], dim=-1), dim=1), min=1e-9)
+    sb = sqrt2 / torch.clamp(torch.mean(torch.linalg.norm(b - cb[:, None], dim=-1), dim=1), min=1e-9)
+    an = (a - ca[:, None]) * sa[:, None, None]
+    bn = (b - cb[:, None]) * sb[:, None, None]
+    rows = ess._epipolar_rows(an, bn)                        # (H, 8, 9)
+    c = torch.tensor(_F_NORM_C, dtype=dtype, device=dev)
+    A9 = torch.cat([rows, c.expand(n_hyp, 1, 9)], dim=1)     # (H, 9, 9)
+    e9 = torch.zeros(n_hyp, 9, dtype=dtype, device=dev)
+    e9[:, 8] = 1.0
+    Fm = _ge_solve(A9, e9).reshape(-1, 3, 3)
+
+    zero = torch.zeros_like(sa)
+    one = torch.ones_like(sa)
+
+    def T(s, cc):
+        return torch.stack([
+            torch.stack([s, zero, -s * cc[:, 0]], dim=-1),
+            torch.stack([zero, s, -s * cc[:, 1]], dim=-1),
+            torch.stack([zero, zero, one], dim=-1)], dim=-2)
+
+    Fs = T(sb, cb).transpose(-1, -2) @ Fm @ T(sa, ca)         # (H, 3, 3)
+    errs = ess.essential_symmetric_error(Fs, x1, x2)          # (H, N)
+    inls = (errs < thr) & mask[None, :]
+    counts = torch.sum(inls, dim=-1)
+    best = torch.argmax(counts)
+    return Fs[best], inls[best], counts[best]
