@@ -13,9 +13,13 @@ Phases; each raises on failure, so any failure exits non-zero:
   1. device and build: the card's name and power limit, the kernels built
      with nvcc (one process per source, started together);
   2. kernel K1 (Shi-Tomasi response) against its plain PyTorch version on
-     the card over the full image at 480x752, 240x376 and 481x755, the
-     detections it feeds, and its time beside the plain version's and the
-     card's bound;
+     the card over the full image: the bench render, uniform noise from
+     1x1 to 481x755 (one tile, one tile plus a pixel each way, 1x752) and
+     a contiguous view 4 bytes into its storage; each case prints the load
+     stage it took (TMA or per-thread loads), which must match the
+     launcher's plan, and both stages must occur. Then the detections it
+     feeds, and its time beside the plain version's, the card's bound and
+     a launch floor (the device time of a 1-element zero_());
   3. the main path: the bench scene, first_frame_step, the slot -> track
      association, then N_FRAMES x (frame_step -> association -> pnp_step)
      chaining the tail pose; launch counts are zeroed just before and read
@@ -91,7 +95,8 @@ def cuda_ms(fn, reps=60, warmup=5):
 def device_ms(fn, reps=60, warmup=5):
     """Mean device time of fn() in milliseconds: the durations of the CUDA
     kernels it launches, summed over a torch.profiler trace of `reps`
-    calls. Falls back to cuda_ms when the trace holds no kernel."""
+    calls. Raises when the trace holds no CUDA kernel: then nothing of fn
+    was seen on the device, and a host-clock time would hide that."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -104,7 +109,7 @@ def device_ms(fn, reps=60, warmup=5):
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        return cuda_ms(fn, reps, warmup)
+        raise RuntimeError("device_ms: the profiler trace holds no CUDA kernel")
     return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
 
 
@@ -274,11 +279,23 @@ def main():
     # 2. K1 against its plain version -----------------------------------------
     pyr0 = kern.preprocess(host["images"][0])
     g = torch.Generator(device="cpu").manual_seed(648)
+    th, tw = stencil.TILE
     k1_cases = [("bench render", pyr0[0].contiguous())] + [
         (f"uniform {h}x{w_}", torch.rand(h, w_, generator=g).to(dev))
-        for h, w_ in [(480, 752), (240, 376), (481, 755)]]
-    k1_err_main = None
+        for h, w_ in [(480, 752), (240, 376), (481, 755), (1, 1), (3, 5), (7, 130),
+                      (th, tw), (th + 1, tw + 1), (1, 752)]]
+    # a contiguous view 4 bytes into its storage: TMA cannot take it
+    flat = torch.rand(480 * 752 + 1, generator=g).to(dev)
+    k1_cases.append(("misaligned view 480x752", flat[1:].view(480, 752)))
+    k1_err_main, stages = None, set()
     for name, img in k1_cases:
+        plan = stencil.launch_plan(*img.shape, img.data_ptr())
+        if stencil.kernel_plan(*img.shape, img.data_ptr()) != plan:
+            raise RuntimeError(f"K1 launcher and launch_plan disagree on {name}")
+        if plan.tma != (name != "misaligned view 480x752" and img.shape[1] % 4 == 0):
+            raise RuntimeError(f"K1 plans the wrong load stage for {name}")
+        stage = "tma" if plan.tma else "threads"
+        stages.add(stage)
         before = stencil.LAUNCHES
         out = stencil.shi_tomasi_response(img)
         torch.cuda.synchronize()
@@ -291,7 +308,10 @@ def main():
             raise RuntimeError(f"K1 disagrees with its plain version on {name}: {err} > {lim}")
         if name == "bench render":
             k1_err_main = err
-        log(f"[2] K1 {name} {tuple(img.shape)}: max|kernel - plain| = {err:.3e} (limit {lim:.3e})")
+        log(f"[2] K1 {name} {tuple(img.shape)}: load stage {stage}, grid {plan.grid}, "
+            f"max|kernel - plain| = {err:.3e} (limit {lim:.3e})")
+    if stages != {"tma", "threads"}:
+        raise RuntimeError(f"K1's cases took only the load stage(s) {stages}")
     img0 = pyr0[0].contiguous()
     r_k, r_p = stencil.shi_tomasi_response(img0), detect.shi_tomasi_response(img0)
     xy_k, m_k = kern.detect(img0, torch.zeros(1, 2, device=dev), torch.zeros(1, dtype=torch.bool, device=dev), r_k)
@@ -302,6 +322,10 @@ def main():
     log(f"[2] detections from K1 / plain responses: {int(m_k.sum())} identical keypoints "
         f"(max |dxy| {dxy:.2e} px)")
     k1_ms = device_ms(lambda: stencil.shi_tomasi_response(img0))
+    one = torch.empty(1, device=dev)
+    floor_ms = device_ms(lambda: one.zero_())
+    floor_call_ms = cuda_ms(lambda: one.zero_())
+    events_ms = cuda_ms(lambda: None)
     plain_ms = device_ms(lambda: detect.shi_tomasi_response(img0))
     k1_call_ms = cuda_ms(lambda: stencil.shi_tomasi_response(img0))
     plain_call_ms = cuda_ms(lambda: detect.shi_tomasi_response(img0))
@@ -312,6 +336,9 @@ def main():
         f"{k1_call_ms:.6f} ms); plain version device {plain_ms:.6f} ms (per call "
         f"{plain_call_ms:.6f} ms); bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, "
         f"{nflops} flop); no single PyTorch call computes this function (library_ms null)")
+    log(f"[2] launch floor: device {floor_ms:.6f} ms for a 1-element zero_() on the card, per "
+        f"call {floor_call_ms:.6f} ms (an empty event pair reads {events_ms:.6f} ms); K1 device "
+        f"{k1_ms:.6f} ms, per call {k1_call_ms:.6f} ms, bound {bound_ms:.6f} ms")
     torch.cuda.synchronize()
 
     # 3. the main path ---------------------------------------------------------

@@ -15,11 +15,17 @@ input dtype. The plain version and the kernel agree over the WHOLE image,
 borders included (zero padding for the image taps, zero gradient products
 outside the image).
 
+`launch_plan(H, W, data_ptr)` is the launcher's rule in Python: the tile,
+the grid and whether the tile arrives by TMA or by per-thread loads. The
+CUDA launcher (`pvio_shi_tomasi_plan`) follows the same rule.
+
 `LAUNCHES` counts kernel launches, so a run can show that its main path
 went through the kernel.
 """
 
+import contextlib
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +40,30 @@ _LIB = None
 # three gradient products, three 3x3 box means (9 each), lambda_min (9)
 FLOPS_PER_PIXEL = 2 * 9 + 3 + 3 * 9 + 9
 
+# the kernel's output tile (rows, columns), as TH / TW in shi_tomasi.cu, and
+# where its input box starts relative to the tile: 2 rows up (the halo), 4
+# columns left (the halo rounded up so that the box starts on 16 B, which
+# TMA requires); the box reaches as far past the tile on the other side
+TILE = (24, 128)
+BOX_OFFSET = (-2, -4)
+
+
+class Plan(NamedTuple):
+    tile: tuple      # (rows, columns) of output per block
+    grid: tuple      # (blocks across, blocks down)
+    box: tuple       # (rows, columns) of the input box the block loads
+    tma: bool        # True: one TMA copy loads the tile; False: per-thread loads
+
+
+def launch_plan(H, W, data_ptr):
+    """The launch of K1 for an (H, W) float32 image at address data_ptr.
+    TMA needs a 16-B aligned base and a row stride that is a multiple of
+    16 B; any other input takes the kernel's per-thread load stage."""
+    th, tw = TILE
+    return Plan(tile=TILE, grid=(-(-W // tw), -(-H // th)),
+                box=(th - 2 * BOX_OFFSET[0], tw - 2 * BOX_OFFSET[1]),
+                tma=W % 4 == 0 and data_ptr % 16 == 0)
+
 
 def cost(H, W):
     """(bytes, flops) the response must move and compute at (H, W) in
@@ -45,10 +75,12 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = cuda_build.load(SOURCE)
-        fn = lib.pvio_shi_tomasi
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib.pvio_shi_tomasi.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p]
+        lib.pvio_shi_tomasi.restype = ctypes.c_int
+        lib.pvio_shi_tomasi_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.POINTER(ctypes.c_int)]
+        lib.pvio_shi_tomasi_plan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -58,6 +90,14 @@ def build():
     _, log = cuda_build.build(SOURCE)
     _lib()
     return log
+
+
+def kernel_plan(H, W, data_ptr):
+    """The plan the CUDA launcher takes (its own rule, compiled), as a
+    Plan, so it can be held against launch_plan."""
+    p = (ctypes.c_int * 7)()
+    _lib().pvio_shi_tomasi_plan(H, W, data_ptr, p)
+    return Plan(tile=(p[0], p[1]), grid=(p[2], p[3]), box=(p[5], p[6]), tma=bool(p[4]))
 
 
 def shi_tomasi_response_cuda(img):
@@ -75,9 +115,13 @@ def shi_tomasi_response_cuda(img):
         raise ValueError(f"shi_tomasi_response_cuda: unsupported shape {(H, W)}")
     out = torch.empty_like(x)
     fn = _lib().pvio_shi_tomasi
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), H, W, stream)
+    idx = x.device.index
+    # the launcher launches on the current device: switch only when needed
+    with (contextlib.nullcontext() if idx == torch.cuda.current_device()
+          else torch.cuda.device(idx)):
+        err = fn(x.data_ptr(), out.data_ptr(), H, W, torch._C._cuda_getCurrentRawStream(idx))
+    if err < 0:
+        raise RuntimeError(f"shi_tomasi kernel: cuTensorMapEncodeTiled failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"shi_tomasi kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
