@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels from `pvio_torch/csrc/` and drives
-the port's per-frame path at the production size (Config() defaults,
-float32, planes on: 480x752 frames, 150 keypoint slots, 9 frame slots x
-256 tracks x 8 planes, 64 IMU samples) through the entry points a user
-calls: `DeviceKernels.first_frame_step`, `frame_step` and `pnp_step`.
+the port's main path, bench.py's coupled chain, at the production size
+(Config() defaults, float32, planes on: 480x752 frames, 150 keypoint slots,
+9 frame slots x 256 tracks x 8 planes, 64 IMU samples) through the entry
+points a user calls: `DeviceKernels.first_frame_step`, `frame_step`,
+`pnp_step`, `ba_step`, `marg_step`, `kf_step` and `kf_step_chained`.
 
 Phases; each raises on failure, so any failure exits non-zero:
   1. device and build: the card's name and power limit, the kernels built
@@ -22,11 +23,21 @@ Phases; each raises on failure, so any failure exits non-zero:
      a launch floor (the device time of a 1-element zero_());
   3. the main path: the bench scene, first_frame_step, the slot -> track
      association, then N_FRAMES x (frame_step -> association -> pnp_step)
-     chaining the tail pose; launch counts are zeroed just before and read
-     just after, and K1 must have launched once per frame;
-  4. the same chain through the port on the CPU at float32, and the
-     agreement of the two runs;
-  5. the kernel table (JSON), the nvidia-smi line and, last, the result.
+     chaining the tail pose, and every KF_EVERY-th frame ba_step
+     (make_prior=False) + marg_step on the chained window, which then
+     resets to the base window as bench.py does (the synthetic window has
+     no host topology upkeep); every solve must lower its cost, accept a
+     step and leave a finite window and prior; launch counts are zeroed
+     just before and read just after, and K1 must have launched once per
+     frame;
+  4. the keyframe: one kf_step_chained (do_marg=True) fed the last
+     pnp_step's device outputs, and one kf_step fed their host copies,
+     under deterministic algorithms: every output identical. Then the
+     median device-synchronised times of ba_step, marg_step, kf_step and
+     kf_step_chained, and of one BA solve with each preintegration path;
+  5. the same chain through the port on the CPU at float32, and the
+     agreement of the two runs (frames and keyframes);
+  6. the kernel table (JSON), the nvidia-smi line and, last, the result.
 
 Exits non-zero, printing no result, when CUDA is not available or the
 port's package is not beside this script.
@@ -44,6 +55,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_FRAMES = 12
+KF_EVERY = 4                    # bench.py's keyframe cadence
+KF_REPS = 3                     # timed repetitions of each keyframe step
 KEY0 = (648, 1)                 # threefry key data of the first frame_step
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -57,6 +70,17 @@ K1_REL_TOL, K1_ABS_TOL = 1e-6, 1e-9
 MIN_STATUS_AGREEMENT = 0.995
 MAX_MEDIAN_KP_PX = 1e-3
 MAX_FINAL_DP_M = 1e-5
+# card vs CPU keyframes, both float32: ba_step's solved window, marg_step's
+# prior through S^T S and S^T infovec (relative to their largest entry).
+# Measured on an H100 (700 W), worst of 3 keyframes: |dp| 2.384e-6 m,
+# |dtheta| 5.807e-7 rad, flags 1.0, accepted 10 vs 10, prior 4.342e-4. The
+# bounds are ~100x those, the flag and accept bounds the slice's ceilings
+# (at most 1e-3 m, 1e-3 rad, >= 0.99 flags, accepted within 1).
+MAX_KF_DP_M = 2.4e-4
+MAX_KF_DTHETA_RAD = 6e-5
+MIN_KF_FLAG_AGREEMENT = 0.99
+MAX_KF_ACCEPTED_DIFF = 1
+MAX_KF_PRIOR_REL = 5e-2
 
 
 def log(msg):
@@ -117,9 +141,25 @@ def device_ms(fn, reps=60, warmup=5):
 # the bench scene (bench.py's coupled chain, built with the port's numpy copy)
 
 
+def imu_grids(scene, frames, F, N, dtype=np.float32):
+    """bench.py's per-slot IMU buffers: slot j holds the samples from frame
+    frames[j-1] to frames[j], t_frames[j] is frames[j]'s time."""
+    ts, ws, accs = np.zeros((F, N)), np.zeros((F, N, 3)), np.zeros((F, N, 3))
+    mask, t_frames = np.zeros((F, N), bool), np.zeros(F)
+    for j, fr in enumerate(frames):
+        t_frames[j] = scene.frame_t[fr]
+        if j:
+            sel = (scene.imu_t >= scene.frame_t[frames[j - 1]]) & (scene.imu_t < scene.frame_t[fr])
+            n = min(int(sel.sum()), N)
+            ts[j, :n], ws[j, :n], accs[j, :n] = (scene.imu_t[sel][:n], scene.gyro[sel][:n],
+                                                 scene.accel[sel][:n])
+            mask[j, :n] = True
+    return ts.astype(dtype), ws.astype(dtype), accs.astype(dtype), mask, t_frames.astype(dtype)
+
+
 def bench_inputs(cfg, n_frames):
-    """Window, renders and IMU span of the bench scene (float32 numpy and
-    port tensors on the CPU). Returns (window, host dict)."""
+    """Window, renders and IMU of the bench scene (float32 numpy and port
+    tensors on the CPU). Returns (window, host dict)."""
     import torch
 
     from pvio_torch.io import synthetic
@@ -145,10 +185,16 @@ def bench_inputs(cfg, n_frames):
     fx, fy, cx, cy = cfg.K[0, 0], cfg.K[1, 1], cfg.K[0, 2], cfg.K[1, 2]
     col_px = np.stack([kp[0, chosen, 0] * fx + cx, kp[0, chosen, 1] * fy + cy], axis=-1)
     sel = (scene.imu_t >= scene.frame_t[base]) & (scene.imu_t < scene.frame_t[base + 1])
+    F, N = cfg.window_frame_capacity, cfg.imu_buffer_capacity
     host = dict(images=images, col_px=col_px, col_vis=vis[0, chosen],
                 pnp_imu=(scene.imu_t[sel], scene.gyro[sel], scene.accel[sel]),
                 t_new=float(scene.frame_t[base + 1]),
-                tail_idx=len(kf) - 1, n_tracks=len(chosen))
+                tail_idx=len(kf) - 1, n_tracks=len(chosen),
+                # keyframe IMU: the window's layout, and the layout after
+                # slot 0 is marginalized and the new frame appended
+                imu_ops=imu_grids(scene, kf, F, N),
+                imu_ops2=imu_grids(scene, kf[1:] + [base + 1], F, N),
+                track_life=np.full(cfg.track_capacity, 20, np.int32))
     return w, host
 
 
@@ -175,17 +221,46 @@ def to_device(nt, device):
                       for x in nt))
 
 
-def run_chain(kern, w, host, n_frames):
+def rotation_angle(qa, qb):
+    """Angles (rad) of the relative rotations qa^-1 qb of (..., 4) quaternions
+    (w, x, y, z), in float64 (an arccos of their float32 dot product cannot
+    resolve angles below ~5e-4 rad)."""
+    qa, qb = np.asarray(qa, np.float64), np.asarray(qb, np.float64)
+    w = np.sum(qa * qb, axis=-1)
+    xyz = (qa[..., :1] * qb[..., 1:] - qb[..., :1] * qa[..., 1:]
+           - np.cross(qa[..., 1:], qb[..., 1:]))
+    return 2.0 * np.arctan2(np.linalg.norm(xyz, axis=-1), np.abs(w))
+
+
+def finite(*xs):
+    return all(bool(x.isfinite().all()) for x in xs)
+
+
+def check_solve(info, w2, what):
+    """Raise unless the solve lowered its cost, accepted a step and left a
+    finite window."""
+    c0, c1, acc = (float(info["initial_cost"]), float(info["final_cost"]),
+                   int(info["accepted"]))
+    if not (c1 < c0 and acc >= 1 and finite(w2.q, w2.p, w2.v, w2.bg, w2.ba, w2.inv_depth)):
+        raise RuntimeError(f"{what}: cost {c0} -> {c1}, {acc} accepted steps, or a "
+                           f"non-finite window")
+    return c0, c1, acc
+
+
+def run_chain(kern, w, host, n_frames, kf_every=KF_EVERY):
     """first_frame_step, association, then n_frames x (frame_step ->
-    association -> pnp_step) with the tail pose chained. Returns per-frame
-    records (numpy) and host-clock step times."""
+    association -> pnp_step) with the tail pose chained; after every
+    kf_every-th frame ba_step + marg_step on the chained window, which then
+    resets to the base window (bench.py:237-254). Returns per-frame and
+    per-keyframe records (numpy), host-clock step times and the last
+    frame's device outputs."""
     import torch
 
     from pvio_torch.frontend import detect
 
     dev, dt = kern.device, kern.dtype
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    w = to_device(w, dev)
+    w = w_base = to_device(w, dev)
     images = host["images"]
     pyr, resp, kp, mask = kern.first_frame_step(images[0])
     slot_of_col = associate(kp.cpu().numpy(), mask.cpu().numpy(), host["col_px"],
@@ -201,7 +276,7 @@ def run_chain(kern, w, host, n_frames):
     dq_id = np.array([1.0, 0, 0, 0])
     tail = host["tail_idx"]
     rec = dict(status=[], kp=[], p=[], q=[], rounds=[], frame_ms=[], pnp_ms=[],
-               n_assoc=n_assoc, alive=[])
+               n_assoc=n_assoc, alive=[], kf=[])
     for i in range(n_frames):
         sync()
         t0 = time.perf_counter()
@@ -213,8 +288,8 @@ def run_chain(kern, w, host, n_frames):
         rec["rounds"].append(detect.LAST_ROUNDS)
         alive = alive & mask[sc] & (slot_d >= 0)
         z = (kp[sc] - kinv_off) * kinv_scale
-        q1, p1, v1, bg1, ba1 = kern.pnp_step(
-            w, *imu, host["t_new"], tail, z, alive, alive, 0)[:5]
+        out = kern.pnp_step(w, *imu, host["t_new"], tail, z, alive, alive, 0)
+        q1, p1 = out[0], out[1]
         q, p = w.q.clone(), w.p.clone()
         q[tail], p[tail] = q1, p1
         w = w._replace(q=q, p=p)
@@ -227,13 +302,102 @@ def run_chain(kern, w, host, n_frames):
         rec["p"].append(p1.cpu().numpy())
         rec["q"].append(q1.cpu().numpy())
         rec["alive"].append(int(alive.sum()))
+        rec["last"] = dict(pnp=out, z=z, alive=alive)
+        if kf_every and (i + 1) % kf_every == 0:
+            rec["kf"].append(keyframe(kern, w, host, sync, f"keyframe after frame {i + 1}"))
+            w = w_base
     return rec
+
+
+def keyframe(kern, w, host, sync, what):
+    """bench.py's keyframe: ba_step (make_prior=False) + marg_step, both
+    checked. Returns a record of the solved window and the new prior."""
+    sync()
+    t0 = time.perf_counter()
+    w2, info, xw, _ = kern.ba_step(w, *host["imu_ops"], host["track_life"], False)
+    sync()
+    t1 = time.perf_counter()
+    wm = kern.marg_step(w2, *host["imu_ops"])
+    sync()
+    t2 = time.perf_counter()
+    c0, c1, acc = check_solve(info, w2, f"ba_step, {what}")
+    if not finite(xw[w2.track_mask], wm.prior.sqrt_info, wm.prior.infovec, wm.p, wm.q):
+        raise RuntimeError(f"marg_step, {what}: non-finite prior or window")
+    S, iv = wm.prior.sqrt_info.double(), wm.prior.infovec.double()
+    return dict(cost=(c0, c1), accepted=acc, ba_ms=1e3 * (t1 - t0), marg_ms=1e3 * (t2 - t1),
+                p=w2.p.cpu().numpy(), q=w2.q.cpu().numpy(),
+                frames=w2.frame_mask.cpu().numpy(), flags=w2.track_flags.cpu().numpy(),
+                StS=(S.T @ S).cpu().numpy(), Siv=(S.T @ iv).cpu().numpy())
+
+
+def keyframe_inputs(kern, w, host, last):
+    """kf_step's arguments for one keyframe at the bench's new frame
+    (base + 1) with do_marg=True, on the base window with its initial
+    prior, every 5th non-plane track made fresh (not TF_VALID, re-based
+    off slot 0) so that the adoption has work. `last` holds the last
+    pnp_step's device outputs. Returns (window, args before the
+    triangulation, (tri_depth, tri_ok), tri_mask_host, track_life, slot)."""
+    import torch
+
+    from pvio_torch.estimation import marginalization as marg_mod
+    from pvio_torch.map import window as win
+
+    w = to_device(w, kern.device)
+    wr = marg_mod.rebase_tracks(w, kern.extr, removed_slot=0)
+    T = w.kp.shape[1]
+    col = torch.arange(T, device=kern.device)
+    fresh = ((col % 5 == 2) & ((w.track_flags & win.TF_PLANE) == 0) & w.track_mask
+             & (wr.ref_frame != 0))
+    w = w._replace(track_flags=torch.where(fresh, w.track_flags & ~win.TF_VALID, w.track_flags),
+                   ref_frame=torch.where(fresh, wr.ref_frame, w.ref_frame),
+                   inv_depth=torch.where(fresh, wr.inv_depth, w.inv_depth))
+    w = w._replace(prior=kern.initial_prior(w))
+    out, z, alive = last["pnp"], last["z"], last["alive"]
+    nf_obs = alive.cpu().numpy()
+    obs = (w.obs_mask & w.frame_mask[:, None]).cpu().numpy()
+    flags, ref = w.track_flags.cpu().numpy(), w.ref_frame.cpu().numpy()
+    tri_mask_host = (w.track_mask.cpu().numpy() & (obs[1:].sum(axis=0) + nf_obs >= 2)
+                     & ((flags & (win.TF_VALID | win.TF_PLANE)) == 0) & (ref != 0))
+    life = (obs.sum(axis=0) + nf_obs).astype(np.int32) + 15
+    slot = int(w.frame_mask.sum()) - 1            # the slot freed by the marginalization
+    args = (*host["imu_ops"], *host["imu_ops2"], *out[:5], z, alive)
+    return w, args, (out[6], out[7]), tri_mask_host, life, slot
+
+
+def leaves(x):
+    """Every tensor of a nested output, in a fixed order."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in leaves(x[k])]
+    return [t for item in x for t in leaves(item)]
+
+
+def synced_ms(fn, reps):
+    """Median host-clock milliseconds of fn() between two device
+    synchronisations, and fn()'s last output."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), out
 
 
 # ---------------------------------------------------------------------------
 
 
 def main():
+    # cuBLAS is deterministic only with a fixed workspace, which must be set
+    # before its first use (the keyframe phase runs under deterministic
+    # algorithms)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -364,8 +528,54 @@ def main():
     log(f"[3] frame_step ms {[round(x, 3) for x in rec['frame_ms']]}")
     log(f"[3] pnp_step ms {[round(x, 3) for x in rec['pnp_ms']]}")
     log(f"[3] median (first frame excluded): frame_step {fs_ms:.3f} ms, pnp_step {pnp_ms:.3f} ms")
+    if len(rec["kf"]) != N_FRAMES // KF_EVERY:
+        raise RuntimeError(f"{len(rec['kf'])} keyframes in {N_FRAMES} frames")
+    for k, r in enumerate(rec["kf"]):
+        log(f"[3] keyframe {k + 1}: ba_step {r['ba_ms']:.3f} ms (cost {r['cost'][0]:.6g} -> "
+            f"{r['cost'][1]:.6g}, {r['accepted']} accepted steps), marg_step {r['marg_ms']:.3f} ms")
 
-    # 4. card vs CPU -------------------------------------------------------------
+    # 4. the keyframe, chained and fed from the host ------------------------------
+    from pvio_torch.estimation import ba as ba_mod
+
+    wk, args, (tri_depth, tri_ok), tri_mask_host, life, slot = keyframe_inputs(
+        kern, w, host, rec["last"])
+    host_args = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+    host_tri = (tri_depth.cpu(), tri_mask_host & tri_ok.cpu().numpy())
+    torch.use_deterministic_algorithms(True)
+    try:
+        chained = kern.kf_step_chained(wk, *args, tri_depth, tri_ok, tri_mask_host, life, slot,
+                                       False, True)
+        fed = kern.kf_step(wk, *host_args, *host_tri, life, slot, False, True)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    la, lb = leaves(chained), leaves(fed)
+    same = len(la) == len(lb) and all(a.dtype == b.dtype and torch.equal(a, b)
+                                      for a, b in zip(la, lb))
+    c0, c1, acc = check_solve(chained[1], chained[0], "kf_step_chained")
+    if not (same and finite(chained[0].prior.sqrt_info, chained[0].prior.infovec)):
+        raise RuntimeError("kf_step_chained and kf_step (host copies) differ, or a non-finite prior")
+    log(f"[4] keyframe (do_marg, slot {slot}, {int(host_tri[1].sum())} triangulations adopted): "
+        f"kf_step_chained == kf_step on all {len(la)} outputs, bit for bit, under "
+        f"deterministic algorithms; cost {c0:.6g} -> {c1:.6g}, {acc} accepted steps")
+    w_kf = to_device(w, dev)
+    kf_ms = {
+        "ba_step": synced_ms(lambda: kern.ba_step(w_kf, *host["imu_ops"], host["track_life"],
+                                                  False), KF_REPS)[0],
+        "marg_step": synced_ms(lambda: kern.marg_step(w_kf, *host["imu_ops"]), KF_REPS)[0],
+        "kf_step": synced_ms(lambda: kern.kf_step(wk, *host_args, *host_tri, life, slot,
+                                                  False, True), KF_REPS)[0],
+        "kf_step_chained": synced_ms(lambda: kern.kf_step_chained(
+            wk, *args, tri_depth, tri_ok, tri_mask_host, life, slot, False, True), KF_REPS)[0],
+    }
+    w_att = kern.attach_deltas(w_kf, *host["imu_ops"])
+    for fused in (True, False):
+        kf_ms[f"solve fused_preint={fused}"] = synced_ms(lambda: ba_mod.solve(
+            w_att, kern.extr, kern.ba_cfg._replace(fused_preint=fused)), KF_REPS)[0]
+    log(f"[4] median device-synchronised ms of {KF_REPS}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in kf_ms.items()))
+
+    # 5. card vs CPU -------------------------------------------------------------
     torch.set_num_threads(max(1, os.cpu_count() or 1))
     t0 = time.perf_counter()
     rec_cpu = run_chain(DeviceKernels(cfg, device="cpu"), w, host, N_FRAMES)
@@ -374,18 +584,35 @@ def main():
         rec["kp"], rec_cpu["kp"], rec["status"], rec_cpu["status"])])
     med_dkp = float(np.median(dkp)) if dkp.size else float("inf")
     dp = float(np.linalg.norm(rec["p"][-1] - rec_cpu["p"][-1]))
-    log(f"[4] CPU chain {time.perf_counter() - t0:.1f} s: status agreement {agree:.6f}, "
+    log(f"[5] CPU chain {time.perf_counter() - t0:.1f} s: status agreement {agree:.6f}, "
         f"median |dkp| {med_dkp:.3e} px over {dkp.size} slot-frames, max |dkp| "
         f"{float(dkp.max()) if dkp.size else float('nan'):.3e}, final |dp| {dp:.3e} m")
     if not (agree >= MIN_STATUS_AGREEMENT and med_dkp <= MAX_MEDIAN_KP_PX and dp <= MAX_FINAL_DP_M):
         raise RuntimeError("card and CPU runs of the port disagree beyond the stated bounds")
+    kf_ok = len(rec_cpu["kf"]) == len(rec["kf"])
+    for k, (a, b) in enumerate(zip(rec["kf"], rec_cpu["kf"])):
+        live = a["frames"] & b["frames"]
+        kdp = float(np.abs(a["p"] - b["p"])[live].max())
+        kdth = float(rotation_angle(a["q"], b["q"])[live].max())
+        flag_agree = float(np.mean(a["flags"] == b["flags"]))
+        prior_rel = max(float(np.abs(a[x] - b[x]).max() / np.abs(b[x]).max())
+                        for x in ("StS", "Siv"))
+        log(f"[5] keyframe {k + 1} card vs CPU: max |dp| {kdp:.3e} m, max |dtheta| "
+            f"{kdth:.3e} rad, flag agreement {flag_agree:.6f}, accepted {a['accepted']} vs "
+            f"{b['accepted']}, prior S^T S / S^T infovec max rel {prior_rel:.3e}")
+        kf_ok &= (kdp <= MAX_KF_DP_M and kdth <= MAX_KF_DTHETA_RAD
+                  and flag_agree >= MIN_KF_FLAG_AGREEMENT
+                  and abs(a["accepted"] - b["accepted"]) <= MAX_KF_ACCEPTED_DIFF
+                  and prior_rel <= MAX_KF_PRIOR_REL)
+    if not kf_ok:
+        raise RuntimeError("card and CPU keyframes of the port disagree beyond the stated bounds")
 
-    # 5. summary -----------------------------------------------------------------
+    # 6. summary -----------------------------------------------------------------
     kernels = [dict(name="shi_tomasi", route="cuda", source="pvio_torch/csrc/shi_tomasi.cu",
                     replaces="pvio_tpu/ops/stencil.py:28", launches=launches["shi_tomasi"],
                     max_abs_err=k1_err_main, ms=k1_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=None)]
-    log(f"[5] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[6] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

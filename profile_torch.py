@@ -11,7 +11,14 @@ planes on, 480x752) and reports, after one warm-up frame:
   * a torch.profiler trace of two plain frames: the device's busy share
     of the wall time, the number of kernels launched per frame, and the
     kernels (or operators) that take the most device time;
-  * K1's device time per launch from the same trace.
+  * K1's device time per launch from the same trace;
+  * the keyframe breakdown: `ba_step` (re-integration, and per LM
+    iteration linearize, Schur + Cholesky, retract + evaluate_cost; then
+    the plane-track escape, the post-solve update and the fresh
+    triangulation) and `marg_step` (re-integration, marginalize0), each
+    stage synchronised before and after inside a torch.profiler trace of
+    --kf-reps calls: host ms, device ms, device events launched and the
+    device's busy share, per call of the step.
 Prints one JSON object as the last line (and writes it to --out).
 """
 
@@ -35,6 +42,7 @@ def main():
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--kf-reps", type=int, default=2)
     ap.add_argument("--out", help="also write the result JSON to this file")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -52,7 +60,7 @@ def main():
     kern = DeviceKernels(cfg)
     n = args.frames + 3
     w, host = cs.bench_inputs(cfg, n)
-    cs.run_chain(kern, w, host, 1)            # warm-up: handles, allocator
+    cs.run_chain(kern, w, host, 1, kf_every=0)   # warm-up: handles, allocator
 
     # stage times ------------------------------------------------------------
     times = defaultdict(list)
@@ -88,7 +96,7 @@ def main():
         setattr(obj, attr, timed(name, getattr(obj, attr)))
     kern.frame_step = timed("frame_step (total)", kern.frame_step)
     kern.pnp_step = timed("pnp_step (total)", kern.pnp_step)
-    cs.run_chain(kern, w, host, args.frames)
+    cs.run_chain(kern, w, host, args.frames, kf_every=0)
     for obj, attr, fn in saved:
         setattr(obj, attr, fn)
     del kern.frame_step, kern.pnp_step
@@ -102,7 +110,7 @@ def main():
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cs.run_chain(kern, w, host, 2)
+        cs.run_chain(kern, w, host, 2, kf_every=0)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -121,16 +129,95 @@ def main():
                    device_events=len(kernels),
                    top=[dict(name=k[:120], device_ms=v[0] / 1e3, count=v[1]) for k, v in top]),
         k1_device_ms_per_launch=(k1[0][0] / 1e3 / k1[0][1]) if k1 and k1[0][1] else None,
+        keyframe=keyframe_breakdown(kern, w, host, args.kf_reps),
     )
     print(f"trace: wall {wall_ms:.1f} ms for first_frame_step + 2 frames, device busy "
           f"{dev_us / 1e3:.2f} ms, {len(kernels)} device events")
     for t in result["trace"]["top"]:
         print(f"  {t['device_ms']:9.3f} ms {t['count']:6d}x  {t['name']}")
+    for step, stages in result["keyframe"].items():
+        for name, v in stages.items():
+            print(f"{step:10s} {name:46s} host {v['host_ms']:9.3f} ms, device {v['device_ms']:8.3f} ms, "
+                  f"{v['device_events']:8.1f} device events, busy {v['busy_share']:.3f} "
+                  f"(calls {v['calls']:g})")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
+
+
+def keyframe_breakdown(kern, w, host, reps):
+    """Per-call host ms, device ms, device events and busy share of ba_step,
+    marg_step and their stages (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import chip_smoke as cs
+    from pvio_torch.estimation import ba as ba_mod
+
+    stages = [
+        (kern, "attach_deltas", "re-integration (attach_deltas)"),
+        (ba_mod, "linearize", "linearize"),
+        (ba_mod, "_schur_solve", "Schur + Cholesky"),
+        (ba_mod, "_retract_cost", "retract + evaluate_cost"),
+        (kern, "_escape", "plane-track escape"),
+        (ba_mod, "post_solve_update", "post-solve update"),
+        (kern, "_fresh_geometry", "triangulation + baselines + landmarks"),
+        (kern, "marginalize0", "rebase + Schur + eigh (marginalize0)"),
+    ]
+
+    def labelled(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            with record_function(name):
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            return out
+        return wrapper
+
+    w_dev = cs.to_device(w, kern.device)
+    steps = {"ba_step": lambda: kern.ba_step(w_dev, *host["imu_ops"], host["track_life"], False),
+             "marg_step": lambda: kern.marg_step(w_dev, *host["imu_ops"])}
+    for fn in steps.values():                  # warm-up
+        fn()
+    labels = [name for _, _, name in stages]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
+    for obj, attr, name in stages:
+        setattr(obj, attr, labelled(name, getattr(obj, attr)))
+    result = {}
+    try:
+        for step, fn in steps.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    labelled(step, fn)()
+            events = prof.events()
+            device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.name not in labels and e.name not in steps]
+            if not device:
+                raise RuntimeError("keyframe_breakdown: the trace holds no device event")
+            result[step] = {}
+            for name in [step] + labels:
+                ranges = [(e.time_range.start, e.time_range.end) for e in events
+                          if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+                if not ranges:
+                    continue
+                inside = [d for d in device
+                          if any(a <= d.time_range.start < b for a, b in ranges)]
+                host_us = sum(b - a for a, b in ranges)
+                dev_us = sum(d.time_range.elapsed_us() for d in inside)
+                result[step][name] = dict(calls=len(ranges) / reps, host_ms=host_us / 1e3 / reps,
+                                          device_ms=dev_us / 1e3 / reps,
+                                          device_events=len(inside) / reps,
+                                          busy_share=dev_us / host_us if host_us else None)
+    finally:
+        for obj, attr, fn in saved:
+            if obj is kern:
+                delattr(kern, attr)
+            else:
+                setattr(obj, attr, fn)
+    return result
 
 
 if __name__ == "__main__":

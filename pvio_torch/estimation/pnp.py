@@ -92,7 +92,7 @@ def solve_pnp(q0, p0, v0, bg0, ba0, last_q, last_p, last_v, last_bg, last_ba,
         return new_state, cost0, cost1
 
     state = (q0, p0, v0, bg0, ba0)
-    lam = torch.tensor(cfg.lm_lambda_init, dtype=dtype, device=dev)
+    lam = torch.full((), cfg.lm_lambda_init, dtype=dtype, device=dev)
     for _ in range(cfg.iterations):
         new_state, cost0, cost1 = lm_step(state, lam)
         accept = cost1 < cost0

@@ -4,7 +4,8 @@ Matches the outputs of `pvio_tpu/frontend/klt.py::track_keypoints` (with
 `_track_level` and `_bilinear`): 21x21 patches, a gain/bias-invariant
 Gauss-Newton per level (`klt.py:203-230`), fewer iterations on the coarse
 levels, the corner-response trackability gate sampled from the shared
-response maps (`klt.py:390-392`) and the forward-backward gate
+response maps or, without them, the per-patch `min_eig_response`
+(`klt.py:390-395`), and the forward-backward gate
 (`klt.py:399-413`).
 
 The reference samples patches with banded one-hot matmuls on per-keypoint
@@ -143,8 +144,45 @@ def _track_level(img_prev, img_next, kp_prev, guess, iters, half):
     return gflow, err
 
 
+def _sample_patch(img, cx, cy, half):
+    """(K, P, P) bilinear patches centred at (cx, cy) (K,), the centre
+    clamped off the border, every sample of a patch sharing one fractional
+    offset (`klt.py:48-75`)."""
+    P = 2 * half + 1
+    H, W = img.shape
+    cx = torch.clamp(cx, half + 1.0, W - half - 3.0)
+    cy = torch.clamp(cy, half + 1.0, H - half - 3.0)
+    wx = torch.floor(cx).to(torch.int64) - half - 1
+    wy = torch.floor(cy).to(torch.int64) - half - 1
+    lx = cx - half - wx.to(cx.dtype)
+    ly = cy - half - wy.to(cy.dtype)
+    lxi = torch.clamp(torch.floor(lx).to(torch.int64), 0, 2)
+    lyi = torch.clamp(torch.floor(ly).to(torch.int64), 0, 2)
+    fx = (lx - lxi.to(cx.dtype))[:, None, None]
+    fy = (ly - lyi.to(cy.dtype))[:, None, None]
+    ar = torch.arange(P + 1, device=img.device)
+    S = img[(wy + lyi)[:, None, None] + ar[None, :, None],
+            (wx + lxi)[:, None, None] + ar[None, None, :]]      # (K, P+1, P+1)
+    rows = S[:, 0:P, :] * (1.0 - fy) + S[:, 1:P + 1, :] * fy
+    return rows[:, :, 0:P] * (1.0 - fx) + rows[:, :, 1:P + 1] * fx
+
+
+def min_eig_response(img, kp, half):
+    """Per-keypoint min eigenvalue of the patch gradient matrix, normalized
+    per pixel (`klt.py:293-313`): the trackability gate when no response
+    maps are given."""
+    cx, cy = kp[:, 0], kp[:, 1]
+    gx = _sample_patch(img, cx + 0.5, cy, half) - _sample_patch(img, cx - 0.5, cy, half)
+    gy = _sample_patch(img, cx, cy + 0.5, half) - _sample_patch(img, cx, cy - 0.5, half)
+    a = torch.sum(gx * gx, dim=(-2, -1))
+    b = torch.sum(gx * gy, dim=(-2, -1))
+    c = torch.sum(gy * gy, dim=(-2, -1))
+    P = 2 * half + 1
+    return 0.5 * ((a + c) - torch.sqrt((a - c) ** 2 + 4.0 * b * b)) / (P * P)
+
+
 def track_keypoints(
-    pyr_prev, pyr_next, kp_prev, kp_init, mask, resp_prev, resp_next,
+    pyr_prev, pyr_next, kp_prev, kp_init, mask, resp_prev=None, resp_next=None,
     patch=21, iters=10, max_error=2.5, border=20.0, min_eig=1e-6,
     fb_threshold=0.0, coarse_iters=8, fb_iters=6,
 ):
@@ -153,7 +191,8 @@ def track_keypoints(
     pyr_prev/pyr_next: pyramid lists (level 0 = full res); kp_prev (K, 2)
     pixel coords at level 0; kp_init (K, 2) initial guesses; mask (K,);
     resp_prev/resp_next: corner-response maps of the level-0 images (the
-    trackability gate samples them at both endpoints).
+    trackability gate samples them at both endpoints); without them the
+    gate is each endpoint patch's `min_eig_response`.
 
     Returns (kp_next (K, 2), status (K,) bool)."""
     half = patch // 2
@@ -175,8 +214,12 @@ def track_keypoints(
            & (kp_next[:, 1] >= border) & (kp_next[:, 1] < H - border))
     finite = torch.all(torch.isfinite(kp_next), dim=-1)
     kp_n = torch.where(finite[:, None], kp_next, kp_prev)
-    lam_p = _bilinear(resp_prev, kp_prev)
-    lam_n = _bilinear(resp_next, kp_n)
+    if resp_prev is not None and resp_next is not None:
+        lam_p = _bilinear(resp_prev, kp_prev)
+        lam_n = _bilinear(resp_next, kp_n)
+    else:
+        lam_p = min_eig_response(pyr_prev[0], kp_prev, half)
+        lam_n = min_eig_response(pyr_next[0], kp_n, half)
     status = (mask & inb & (err < max_error) & finite
               & (lam_p > min_eig) & (lam_n > min_eig))
 

@@ -2,7 +2,8 @@
 
 Matches `pvio_tpu/geometry/lie.py`: `mm`, `mv`, `hat`, `quat_mul`,
 `quat_conj`, `quat_normalize`, `quat_rotate`, `quat_to_mat`, `expmap`,
-`logmap`, `right_jacobian`, `right_jacobian_inv`. Quaternions are (..., 4)
+`logmap`, `right_jacobian`, `right_jacobian_inv`, `s2_tangential_basis`.
+Quaternions are (..., 4)
 ordered (w, x, y, z), Hamilton product; every function broadcasts over
 leading batch dimensions and keeps the input dtype. Small-angle branches
 use the same guarded Taylor series, so values (and forward-mode
@@ -147,3 +148,17 @@ def right_jacobian_inv(w):
     )
     W = hat(w)
     return _eye3(w) + 0.5 * W + c[..., None, None] * mm(W, W)
+
+
+def s2_tangential_basis(x):
+    """Orthonormal basis of the tangent plane at x on S^2: (..., 3) ->
+    (..., 3, 2). Crosses x with the unit axis least aligned with it; ties
+    go to the lower axis (`torch.argmin` and `jnp.argmin` both return the
+    first minimum), so (0, 0, 1) takes the x axis."""
+    idx = torch.argmin(torch.abs(x), dim=-1)
+    e = _eye3(x)[idx]
+    b0 = torch.linalg.cross(x, e, dim=-1)
+    b0 = b0 / torch.linalg.norm(b0, dim=-1, keepdim=True)
+    b1 = torch.linalg.cross(x, b0, dim=-1)
+    b1 = b1 / torch.linalg.norm(b1, dim=-1, keepdim=True)
+    return torch.stack([b0, b1], dim=-1)

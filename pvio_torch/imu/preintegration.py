@@ -80,6 +80,21 @@ def fit_span(ts, ws, accs, t_end, capacity):
     return ts, ws, accs
 
 
+def unit_quat(dtype, device):
+    """(1, 0, 0, 0) made on the device: a tensor built from a Python list
+    would be copied from pageable host memory, which waits on the stream."""
+    q = torch.zeros(4, dtype=dtype, device=device)
+    q[0] = 1.0
+    return q
+
+
+def gravity(dtype, device):
+    """(0, 0, -g), made on the device like `unit_quat`."""
+    g = torch.zeros(3, dtype=dtype, device=device)
+    g[2] = -GRAVITY_NOMINAL
+    return g
+
+
 def _block(rows):
     return torch.cat([torch.cat(r, dim=-1) for r in rows], dim=-2)
 
@@ -150,7 +165,7 @@ def _preintegrate_tree(dts, ws, accs, bg, ba, noise):
     a = accs - ba
     dq = lie.expmap(w * dts[:, None])                    # (n, 4)
     qs = _prefix_quat(dq)
-    ident = torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=dev)
+    ident = unit_quat(dtype, dev)
     q_pref = torch.cat([ident[None], qs[:-1]], dim=0)
     Rd = lie.quat_to_mat(q_pref)
     A, Q, Jr, _, _ = _transition(dts, w, a, dq, Rd, noise)
@@ -217,17 +232,17 @@ def preintegrate(ts, ws, accs, mask, t_target, bg, ba, noise,
     else:
         z33 = torch.zeros(3, 3, dtype=dtype, device=dev)
         state = (torch.zeros((), dtype=dtype, device=dev),
-                 torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=dev),
+                 unit_quat(dtype, dev),
                  torch.zeros(3, dtype=dtype, device=dev), torch.zeros(3, dtype=dtype, device=dev),
                  torch.zeros(9, 9, dtype=dtype, device=dev), z33, z33, (z33,) * 5)
         for i in range(n):
             state = _increment(state, dts[i], ws[i], accs[i], bg, ba, noise)
         t, q, p, v, cov9, covbg, covba, J = state
 
-    cov = torch.zeros(15, 15, dtype=dtype, device=dev)
-    cov[:9, :9] = cov9
-    cov[ES_BG:ES_BG + 3, ES_BG:ES_BG + 3] = covbg
-    cov[ES_BA:ES_BA + 3, ES_BA:ES_BA + 3] = covba
+    # assembled out of place, so that `torch.func.vmap` can batch it
+    z3 = torch.zeros_like(covbg)
+    cov = _block([[cov9, torch.zeros(9, 6, dtype=dtype, device=dev)],
+                  [torch.zeros(6, 9, dtype=dtype, device=dev), _block([[covbg, z3], [z3, covba]])]])
     if compute_covariance:
         sqrt_inv_cov = sqrt_inv_covariance(cov)
     else:
@@ -260,7 +275,7 @@ def sqrt_inv_covariance(cov):
 def predict(delta: PreintDelta, q, p, v, bg, ba):
     """Constant-bias forward propagation with gravity. Returns
     (q', p', v', bg, ba)."""
-    g = torch.tensor([0.0, 0.0, -GRAVITY_NOMINAL], dtype=p.dtype, device=p.device)
+    g = gravity(p.dtype, p.device)
     v_new = v + g * delta.t + lie.quat_rotate(q, delta.v)
     p_new = p + 0.5 * g * delta.t ** 2 + v * delta.t + lie.quat_rotate(q, delta.p)
     q_new = lie.quat_mul(q, delta.q)

@@ -2,9 +2,9 @@
 
 Matches `pvio_tpu/map/window.py`: `Extrinsics`, `MargPrior`,
 `WindowState` (with a batched `PreintDelta`), `empty_delta`, `empty_prior`,
-`empty_window`, the `TF_*` flags, `landmark_points` and
-`triangulate_tracks_virtual` (`window.py:205-290`). `retract`,
-`triangulate_tracks` and `track_baselines` wait for the keyframe slice.
+`empty_window`, the `TF_*` flags, `retract`, `retract_planes`,
+`landmark_points`, `frame_states_flat`, `triangulate_tracks`,
+`triangulate_tracks_virtual` and `track_baselines` (`window.py:176-309`).
 
 `window_from_numpy` / `extrinsics_from_numpy` carry state across from the
 reference: they take dicts of numpy arrays (for example
@@ -164,6 +164,24 @@ def window_from_numpy(d, dtype=torch.float32, device="cpu"):
     return WindowState(**out)
 
 
+def retract(w: WindowState, d_frames, d_depth):
+    """Apply a tangent step: d_frames (F, 15) ordered (theta, p, v, bg, ba),
+    d_depth (T,). Quaternion update q <- normalize(q * expmap(theta))."""
+    q = lie.quat_normalize(lie.quat_mul(w.q, lie.expmap(d_frames[:, 0:3])))
+    return w._replace(q=q, p=w.p + d_frames[:, 3:6], v=w.v + d_frames[:, 6:9],
+                      bg=w.bg + d_frames[:, 9:12], ba=w.ba + d_frames[:, 12:15],
+                      inv_depth=w.inv_depth + d_depth)
+
+
+def retract_planes(w: WindowState, d_planes):
+    """Apply a plane tangent step d_planes (P, 3): 2 dof on the normal's S^2
+    tangent basis, then the distance."""
+    Tg = lie.s2_tangential_basis(w.plane_normal)                # (P, 3, 2)
+    n = w.plane_normal + lie.mv(Tg, d_planes[:, :2])
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-12)
+    return w._replace(plane_normal=n, plane_distance=w.plane_distance + d_planes[:, 2])
+
+
 def landmark_points(w: WindowState, extr: Extrinsics):
     """World-space landmark of every track (T, 3): the reference frame's
     bearing [z_ref, 1] / inv_depth through body-camera extrinsics and the
@@ -177,6 +195,43 @@ def landmark_points(w: WindowState, extr: Extrinsics):
     return lie.quat_rotate(w.q[w.ref_frame], y_body) + w.p[w.ref_frame]
 
 
+def frame_states_flat(w: WindowState):
+    """(F, 16) stacked [q, p, v, bg, ba]."""
+    return torch.cat([w.q, w.p, w.v, w.bg, w.ba], dim=-1)
+
+
+def _camera_poses(q, p, extr: Extrinsics):
+    """World <- camera rotations and centres of body poses q (F, 4), p (F, 3)."""
+    q_ws = lie.quat_mul(q, extr.q_bc.expand_as(q))
+    return q_ws, p + lie.quat_rotate(q, extr.p_bc.expand_as(p))
+
+
+def _triangulate(q_ws, p_ws, kp, obs, ref_frame):
+    """Multi-view DLT of every track column (kp (F', T, 2), obs (F', T)) from
+    camera poses (F', ...); the depth is taken in the camera of ref_frame.
+    Returns (pts (T, 3), inv_d (T,), ok (T,))."""
+    R_sw = lie.quat_to_mat(lie.quat_conj(q_ws))
+    t_sw = -lie.mv(R_sw, p_ws)
+    Ps = torch.cat([R_sw, t_sw[..., None]], dim=-1)               # (F', 3, 4)
+    pts, ok, _ = triangulation.triangulate_scored(
+        Ps[None], kp.transpose(0, 1), obs.transpose(0, 1))        # batched over T
+    ok = ok & (torch.sum(obs, dim=0) >= 2)
+    y = lie.quat_rotate(lie.quat_conj(q_ws[ref_frame]), pts - p_ws[ref_frame])
+    z = y[..., 2]
+    ok = ok & (z > 1e-3) & (z < triangulation.MAX_DEPTH)
+    inv_d = 1.0 / torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+    return pts, inv_d, ok
+
+
+def triangulate_tracks(w: WindowState, extr: Extrinsics):
+    """Multi-view DLT of every track column from the current window poses.
+    Returns (pts (T, 3) world points, inv_d (T,) in the reference frame,
+    ok (T,) cheirality/depth gate). Invalid columns' points depend on
+    `eigh`'s arbitrary sign; compare them by their flag only."""
+    q_ws, p_ws = _camera_poses(w.q, w.p, extr)
+    return _triangulate(q_ws, p_ws, w.kp, w.obs_mask & w.frame_mask[:, None], w.ref_frame)
+
+
 def triangulate_tracks_virtual(w: WindowState, extr: Extrinsics,
                                q_new, p_new, z_new, m_new):
     """Multi-view DLT of every track column with one virtual extra view
@@ -184,20 +239,22 @@ def triangulate_tracks_virtual(w: WindowState, extr: Extrinsics,
     m_new). Returns (inv_d (T,) in the reference frame, ok (T,))."""
     q_all = torch.cat([w.q, q_new[None]], dim=0)
     p_all = torch.cat([w.p, p_new[None]], dim=0)
-    q_ws = lie.quat_mul(q_all, extr.q_bc.expand_as(q_all))
-    p_ws = p_all + lie.quat_rotate(q_all, extr.p_bc.expand_as(p_all))
-    R_sw = lie.quat_to_mat(lie.quat_conj(q_ws))
-    t_sw = -lie.mv(R_sw, p_ws)
-    Ps = torch.cat([R_sw, t_sw[..., None]], dim=-1)               # (F+1, 3, 4)
+    q_ws, p_ws = _camera_poses(q_all, p_all, extr)
     obs = torch.cat([w.obs_mask & w.frame_mask[:, None], m_new[None]], dim=0)
     kp = torch.cat([w.kp, z_new[None]], dim=0)                    # (F+1, T, 2)
-    pts, ok, _ = triangulation.triangulate_scored(
-        Ps[None], kp.transpose(0, 1), obs.transpose(0, 1))        # batched over T
-    ok = ok & (torch.sum(obs, dim=0) >= 2)
-    q_ref = q_ws[w.ref_frame]
-    p_ref = p_ws[w.ref_frame]
-    y = lie.quat_rotate(lie.quat_conj(q_ref), pts - p_ref)
-    z = y[..., 2]
-    ok = ok & (z > 1e-3) & (z < triangulation.MAX_DEPTH)
-    inv_d = 1.0 / torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+    _, inv_d, ok = _triangulate(q_ws, p_ws, kp, obs, w.ref_frame)
     return inv_d, ok
+
+
+def track_baselines(w: WindowState):
+    """Per-track baseline (T,): the summed distances between the body
+    positions of consecutive observing slots (slot order is time order)."""
+    F, T = w.obs_mask.shape
+    obs = w.obs_mask & w.frame_mask[:, None]
+    slots = torch.arange(F, device=obs.device)[:, None].expand(F, T)
+    idx = torch.where(obs, slots, torch.full_like(slots, -1))
+    prev_incl = torch.cummax(idx, dim=0).values                  # (F, T)
+    prev = torch.cat([torch.full_like(prev_incl[:1], -1), prev_incl[:-1]], dim=0)
+    seg = obs & (prev >= 0)
+    d = torch.linalg.norm(w.p[:, None, :] - w.p[torch.clamp(prev, 0, F - 1)], dim=-1)
+    return torch.sum(torch.where(seg, d, torch.zeros_like(d)), dim=0)

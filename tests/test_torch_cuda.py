@@ -1,13 +1,22 @@
-"""Tests of the port's hand-written kernels that need a CUDA card.
+"""Tests of the port that need a CUDA card: the hand-written kernels
+against their plain versions, and the keyframe step on the card against the
+CPU.
 
 They carry the `cuda` marker and skip without a card. The file imports
 neither jax nor the reference, so it also runs where JAX is not
 installed: `python -m pytest tests/test_torch_cuda.py --noconftest -q`.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+
+# cuBLAS is deterministic only with a fixed workspace, set before its first
+# use in the process (test_kf_step_chained_is_kf_step_on_card runs under
+# deterministic algorithms)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # (H, W, storage offset in floats): chip_smoke.py's shapes, from 1x1 to one
 # 24x128 tile, one tile plus a pixel each way, and a contiguous view 4 bytes
@@ -43,3 +52,174 @@ def test_shi_tomasi_kernel_matches_plain_on_card(H, W, offset):
     assert err <= 1e-6 * float(ref.abs().max()) + 1e-9, (H, W, offset, err)
     with pytest.raises(ValueError, match="contiguous"):
         stencil.shi_tomasi_response(torch.zeros(8, 6, device="cuda").t())
+
+
+# ---------------------------------------------------------------------------
+# the keyframe step on the card against the same calls on the CPU (float32,
+# the pipeline tests' small configuration, planes on), within the bounds
+# chip_smoke.py states for its card-vs-CPU phase
+
+
+def _small_config():
+    from pvio_torch.io.config import Config
+
+    cfg = Config()
+    cfg.camera_intrinsic = np.array([200.0, 200.0, 160.0, 120.0])
+    cfg.image_size = (320, 240)
+    cfg.sliding_window_size = 6
+    cfg.window_frame_capacity = 7
+    cfg.track_capacity = 96
+    cfg.solver_iteration_limit = 8
+    cfg.imu_buffer_capacity = 64
+    cfg.dtype = "float32"
+    cfg.enable_plane_constraint = True
+    return cfg
+
+
+def _keyframe_case():
+    """The small window (perturbed as tests/test_ba.py:34 does, with its
+    initial prior), its IMU grids, and one keyframe's kf_step arguments:
+    every other non-plane track made fresh and re-based off slot 0, the
+    new frame 3 mm off the truth, triangulated depths 1% off, the
+    adoption mask the host guard of the reference's pipeline."""
+    import chip_smoke as cs
+    from pvio_torch.estimation import marginalization as marg
+    from pvio_torch.geometry import lie
+    from pvio_torch.io import synthetic as TS
+
+    cfg = _small_config()
+    scene = TS.make_scene(duration=2.0, n_points=200, n_plane_points=80, seed=648)
+    kf = [0, 4, 8, 12, 16, 20]
+    w, extr, info = TS.solver_window_from_scene(scene, kf, F_cap=7, T_cap=96,
+                                                dtype=torch.float32, kp_noise=0.002)
+    w, _ = TS.flag_plane_tracks(w, scene, info)
+    rng = np.random.default_rng(648)
+    F, T = 7, 96
+    dq, dp = rng.normal(size=(F, 3)) * 0.005, rng.normal(size=(F, 3)) * 0.01
+    dq[0] = dp[0] = 0.0
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    w = w._replace(q=lie.quat_normalize(lie.quat_mul(w.q, lie.expmap(f32(dq)))), p=w.p + f32(dp),
+                   inv_depth=w.inv_depth + f32(rng.normal(size=T) * 0.02))
+    w = w._replace(prior=marg.make_initial_prior(w))
+    wr = marg.rebase_tracks(w, extr, removed_slot=0)
+    fresh = ((torch.arange(T) % 2 == 1) & ((w.track_flags & 2) == 0) & w.track_mask
+             & (wr.ref_frame != 0))
+    w = w._replace(track_flags=torch.where(fresh, w.track_flags & ~1, w.track_flags),
+                   ref_frame=torch.where(fresh, wr.ref_frame, w.ref_frame),
+                   inv_depth=torch.where(fresh, wr.inv_depth, w.inv_depth))
+    new = kf[-1] + 2
+    kp, vis = TS.project_points(scene, np.array([new]), kp_noise=0.002, seed=5)
+    chosen = np.asarray(info["chosen"])
+    nf_kp, nf_obs = np.zeros((T, 2), np.float32), np.zeros(T, bool)
+    nf_kp[:len(chosen)], nf_obs[:len(chosen)] = kp[0, chosen], vis[0, chosen]
+    nf = tuple(np.asarray(a, np.float32) for a in (scene.q_wb[new], scene.p_wb[new] + 0.003,
+                                                   scene.v_wb[new], np.zeros(3), np.zeros(3)))
+    grids = cs.imu_grids(scene, kf, F, 64)
+    kf_args = (*grids, *cs.imu_grids(scene, kf[1:] + [new], F, 64), *nf, nf_kp, nf_obs,
+               w.inv_depth.numpy() * (1.0 + rng.normal(size=T).astype(np.float32) * 0.01))
+    life = np.full(T, 20, np.int32)
+    obs = (w.obs_mask & w.frame_mask[:, None]).numpy()
+    tri_mask_host = (w.track_mask.numpy() & (obs[1:].sum(axis=0) + nf_obs >= 2)
+                     & ((w.track_flags.numpy() & 3) == 0) & (w.ref_frame.numpy() != 0))
+    tri_ok = rng.uniform(size=T) < 0.9
+    assert (tri_mask_host & tri_ok).sum() >= 5
+    return cfg, w, grids, kf_args, tri_ok, tri_mask_host, life
+
+
+def _compare_windows(a, b, what):
+    import chip_smoke as cs
+
+    live = (a.frame_mask.cpu() & b.frame_mask.cpu()).numpy()
+    dp = float((a.p.cpu() - b.p.cpu()).abs().numpy()[live].max())
+    dth = float(cs.rotation_angle(a.q.cpu().numpy(), b.q.cpu().numpy())[live].max())
+    agree = float((a.track_flags.cpu() == b.track_flags.cpu()).double().mean())
+    print(f"{what}: card vs CPU |dp| {dp:.3e} m, |dtheta| {dth:.3e} rad, flags {agree:.6f}")
+    assert dp <= cs.MAX_KF_DP_M and dth <= cs.MAX_KF_DTHETA_RAD, (what, dp, dth)
+    assert agree >= cs.MIN_KF_FLAG_AGREEMENT, (what, agree)
+
+
+def _prior_rel(a, b):
+    rel = []
+    for p in (a, b):
+        S, iv = p.sqrt_info.double().cpu(), p.infovec.double().cpu()
+        rel.append((S.T @ S, S.T @ iv))
+    return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(*rel))
+
+
+def _cast(nt, dtype):
+    """A window (nested NamedTuple) with its float fields cast to dtype."""
+    return type(nt)(*(_cast(x, dtype) if hasattr(x, "_fields") else
+                      (x.to(dtype) if x.is_floating_point() else x) for x in nt))
+
+
+@pytest.mark.cuda
+def test_keyframe_steps_on_card_match_cpu():
+    """ba_step and marg_step on the card against the CPU, float32, within
+    chip_smoke.py's keyframe bounds; kf_step (do_marg, make_prior) against
+    the CPU at float64 to 1e-8, and at float32 checked to lower its cost.
+    The test prints how far each device's float32 kf_step lies from the
+    CPU's float64 one: on this window that distance is float32's own (the
+    CPU alone moves by about a tenth of a millimetre, PERF.md), so a float32
+    card-vs-CPU bound would measure float32, not the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from pvio_torch.core.kernels import DeviceKernels
+
+    cfg, w, grids, kf_args, tri_ok, tri_mask_host, life = _keyframe_case()
+    kf_mask = tri_mask_host & tri_ok
+    out = {}
+    for dtype in ("float32", "float64"):
+        cfg.dtype = dtype
+        for dev in ("cuda", "cpu"):
+            k = DeviceKernels(cfg, device=dev)
+            wd = cs.to_device(_cast(w, k.dtype), k.device)
+            assert k.ba_cfg.fused_preint == (dev == "cuda")
+            kf = k.kf_step(wd, *kf_args, kf_mask, life, 5, True, True)
+            if dtype == "float32":
+                out[dev] = (k.ba_step(wd, *grids, life, False), k.marg_step(wd, *grids))
+                cs.check_solve(kf[1], kf[0], f"kf_step float32 on {dev}")
+            out[f"kf {dev} {dtype}"] = kf[0]
+    (ba_g, mg_g), (ba_c, mg_c) = out["cuda"], out["cpu"]
+    _compare_windows(ba_g[0], ba_c[0], "ba_step")
+    cs.check_solve(ba_g[1], ba_g[0], "ba_step on the card")
+    assert abs(int(ba_g[1]["accepted"]) - int(ba_c[1]["accepted"])) <= cs.MAX_KF_ACCEPTED_DIFF
+    _compare_windows(mg_g, mg_c, "marg_step")
+    rel = _prior_rel(mg_g.prior, mg_c.prior)
+    assert rel <= cs.MAX_KF_PRIOR_REL, rel
+    wg, wc = out["kf cuda float64"], out["kf cpu float64"]
+    for key in ("kf cuda float32", "kf cpu float32"):
+        live = wc.frame_mask.numpy()
+        dp = float((out[key].p.cpu().double() - wc.p).abs().numpy()[live].max())
+        dth = float(cs.rotation_angle(out[key].q.cpu().numpy(), wc.q.numpy())[live].max())
+        print(f"{key} vs kf cpu float64: |dp| {dp:.3e} m, |dtheta| {dth:.3e} rad")
+    for f in ("q", "p", "v", "bg", "ba", "inv_depth", "plane_normal", "plane_distance"):
+        err = float((getattr(wg, f).cpu() - getattr(wc, f)).abs().max())
+        assert err <= 1e-8, ("kf_step float64", f, err)
+    assert torch.equal(wg.track_flags.cpu(), wc.track_flags)
+
+
+@pytest.mark.cuda
+def test_kf_step_chained_is_kf_step_on_card():
+    """kf_step_chained on device tensors equals kf_step on their host
+    copies, every output, under deterministic algorithms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from pvio_torch.core.kernels import DeviceKernels
+
+    cfg, w, _, kf_args, tri_ok, tri_mask_host, life = _keyframe_case()
+    k = DeviceKernels(cfg)
+    wd = cs.to_device(w, k.device)
+    dev_args = [torch.as_tensor(a, device="cuda") for a in kf_args]
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = k.kf_step_chained(wd, *dev_args, torch.as_tensor(tri_ok, device="cuda"),
+                              tri_mask_host, life, 5, False, True)
+        b = k.kf_step(wd, *kf_args, tri_mask_host & tri_ok, life, 5, False, True)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    la, lb = cs.leaves(a), cs.leaves(b)
+    assert len(la) == len(lb) == 49
+    assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
