@@ -18,7 +18,17 @@ planes on, 480x752) and reports, after one warm-up frame:
     triangulation) and `marg_step` (re-integration, marginalize0), each
     stage synchronised before and after inside a torch.profiler trace of
     --kf-reps calls: host ms, device ms, device events launched and the
-    device's busy share, per call of the step.
+    device's busy share, per call of the step;
+  * the facade breakdown: `pvio_torch.PVIO` run sequentially with fused
+    keyframes on `chip_smoke.py`'s facade stream (480x752 room renders,
+    planes off) and, after initialization and two warm-up frames, one
+    tracked frame's and one keyframe frame's `track_camera` call traced
+    with `FeatureTracker.dispatch_frame` / `finish_frame`,
+    `SlidingWindowTracker.track_dispatch` / `track_finish` (and within
+    them `frame_step`, `pnp_step` and the keyframe step `kf_step`) each
+    synchronised before and after: host ms, device ms, device events and
+    busy share of each, and the Core bookkeeping (the call's host time
+    outside those four).
 Prints one JSON object as the last line (and writes it to --out).
 """
 
@@ -43,6 +53,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--kf-reps", type=int, default=2)
+    ap.add_argument("--no-facade", action="store_true", help="skip the facade breakdown")
     ap.add_argument("--out", help="also write the result JSON to this file")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -130,6 +141,7 @@ def main():
                    top=[dict(name=k[:120], device_ms=v[0] / 1e3, count=v[1]) for k, v in top]),
         k1_device_ms_per_launch=(k1[0][0] / 1e3 / k1[0][1]) if k1 and k1[0][1] else None,
         keyframe=keyframe_breakdown(kern, w, host, args.kf_reps),
+        facade=None if args.no_facade else facade_breakdown(),
     )
     print(f"trace: wall {wall_ms:.1f} ms for first_frame_step + 2 frames, device busy "
           f"{dev_us / 1e3:.2f} ms, {len(kernels)} device events")
@@ -140,6 +152,10 @@ def main():
             print(f"{step:10s} {name:46s} host {v['host_ms']:9.3f} ms, device {v['device_ms']:8.3f} ms, "
                   f"{v['device_events']:8.1f} device events, busy {v['busy_share']:.3f} "
                   f"(calls {v['calls']:g})")
+    for kind, rec in (result["facade"] or {}).items():
+        for name, v in rec["stages"].items():
+            print(f"facade {kind:9s} (frame {rec['frame']}) {name:46s} host {v['host_ms']:9.3f} ms, device "
+                  f"{v['device_ms']:8.3f} ms, {v['device_events']:8.1f} device events")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))
@@ -147,11 +163,50 @@ def main():
     return 0
 
 
+def _labelled(name, fn):
+    """fn synchronised before and after, inside a profiler range `name`."""
+    import torch
+    from torch.profiler import record_function
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        with record_function(name):
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+        return out
+    return wrapper
+
+
+def _attribute(events, names, reps, exclude=()):
+    """Per range name of a trace: calls, host ms, device ms, device events
+    and busy share per rep; a device event belongs to every range whose
+    host span contains its start."""
+    import torch
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    device = [e for e in events if e.device_type == cuda and e.name not in exclude]
+    if not device:
+        raise RuntimeError("profile_torch: the trace holds no device event")
+    out = {}
+    for name in names:
+        ranges = [(e.time_range.start, e.time_range.end) for e in events
+                  if e.name == name and e.device_type == cpu]
+        if not ranges:
+            continue
+        inside = [d for d in device if any(a <= d.time_range.start < b for a, b in ranges)]
+        host_us = sum(b - a for a, b in ranges)
+        dev_us = sum(d.time_range.elapsed_us() for d in inside)
+        out[name] = dict(calls=len(ranges) / reps, host_ms=host_us / 1e3 / reps,
+                         device_ms=dev_us / 1e3 / reps, device_events=len(inside) / reps,
+                         busy_share=dev_us / host_us if host_us else None)
+    return out
+
+
 def keyframe_breakdown(kern, w, host, reps):
     """Per-call host ms, device ms, device events and busy share of ba_step,
     marg_step and their stages (see the module docstring)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from pvio_torch.estimation import ba as ba_mod
@@ -166,16 +221,6 @@ def keyframe_breakdown(kern, w, host, reps):
         (kern, "_fresh_geometry", "triangulation + baselines + landmarks"),
         (kern, "marginalize0", "rebase + Schur + eigh (marginalize0)"),
     ]
-
-    def labelled(name, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            with record_function(name):
-                out = fn(*a, **k)
-                torch.cuda.synchronize()
-            return out
-        return wrapper
-
     w_dev = cs.to_device(w, kern.device)
     steps = {"ba_step": lambda: kern.ba_step(w_dev, *host["imu_ops"], host["track_life"], False),
              "marg_step": lambda: kern.marg_step(w_dev, *host["imu_ops"])}
@@ -184,33 +229,16 @@ def keyframe_breakdown(kern, w, host, reps):
     labels = [name for _, _, name in stages]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
     for obj, attr, name in stages:
-        setattr(obj, attr, labelled(name, getattr(obj, attr)))
+        setattr(obj, attr, _labelled(name, getattr(obj, attr)))
     result = {}
     try:
         for step, fn in steps.items():
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
-                    labelled(step, fn)()
-            events = prof.events()
-            device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.name not in labels and e.name not in steps]
-            if not device:
-                raise RuntimeError("keyframe_breakdown: the trace holds no device event")
-            result[step] = {}
-            for name in [step] + labels:
-                ranges = [(e.time_range.start, e.time_range.end) for e in events
-                          if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
-                if not ranges:
-                    continue
-                inside = [d for d in device
-                          if any(a <= d.time_range.start < b for a, b in ranges)]
-                host_us = sum(b - a for a, b in ranges)
-                dev_us = sum(d.time_range.elapsed_us() for d in inside)
-                result[step][name] = dict(calls=len(ranges) / reps, host_ms=host_us / 1e3 / reps,
-                                          device_ms=dev_us / 1e3 / reps,
-                                          device_events=len(inside) / reps,
-                                          busy_share=dev_us / host_us if host_us else None)
+                    _labelled(step, fn)()
+            result[step] = _attribute(prof.events(), [step] + labels, reps,
+                                      exclude=set(labels) | set(steps))
     finally:
         for obj, attr, fn in saved:
             if obj is kern:
@@ -218,6 +246,64 @@ def keyframe_breakdown(kern, w, host, reps):
             else:
                 setattr(obj, attr, fn)
     return result
+
+
+def facade_breakdown():
+    """One tracked frame's and one keyframe frame's track_camera call of
+    the facade, stage by stage (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from pvio_torch import PVIO
+
+    cfg = cs.facade_config(fused_keyframe=True)
+    scene, images = cs.facade_inputs(cfg)
+    vio = PVIO(cfg)
+    core = vio.core
+    stages = ["FeatureTracker.dispatch_frame", "FeatureTracker.finish_frame",
+              "SlidingWindowTracker.track_dispatch", "SlidingWindowTracker.track_finish"]
+    inner = ["frame_step", "pnp_step", "keyframe step (kf_step)"]
+    kern = core.kernels
+    for attr, name in (("frame_step", "frame_step"), ("frame_step_nodetect", "frame_step"),
+                       ("pnp_step", "pnp_step"), ("kf_step", "keyframe step (kf_step)")):
+        setattr(kern, attr, _labelled(name, getattr(kern, attr)))
+    ft = core.feature_tracker
+    ft.dispatch_frame = _labelled(stages[0], ft.dispatch_frame)
+    ft.finish_frame = _labelled(stages[1], ft.finish_frame)
+    out, warm, fi = {}, 0, 0
+    for k in range(len(scene.imu_t)):
+        t = scene.imu_t[k]
+        vio.track_gyroscope(t, *scene.gyro[k])
+        vio.track_accelerometer(t, *scene.accel[k])
+        while fi < len(scene.frame_t) and scene.frame_t[fi] <= t:
+            swt = core.frontend.swt
+            if swt is None or warm < 2 or len(out) == 2:
+                if swt is not None:
+                    warm += 1
+                vio.track_camera(scene.frame_t[fi], images[fi])
+                fi += 1
+                continue
+            if "track_dispatch" not in vars(swt):
+                swt.track_dispatch = _labelled(stages[2], swt.track_dispatch)
+                swt.track_finish = _labelled(stages[3], swt.track_finish)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _labelled("track_camera", vio.track_camera)(scene.frame_t[fi], images[fi])
+            fi += 1
+            names = ["track_camera"] + stages + inner
+            rec = _attribute(prof.events(), names, 1, exclude=set(names))
+            kind = "keyframe" if "keyframe step (kf_step)" in rec else "tracking"
+            if kind in out:
+                continue
+            outside = rec["track_camera"]["host_ms"] - sum(
+                rec[n]["host_ms"] for n in stages if n in rec)
+            rec["Core bookkeeping (outside the four above)"] = dict(
+                calls=1.0, host_ms=outside, device_ms=0.0, device_events=0.0, busy_share=None)
+            out[kind] = dict(frame=fi - 1, stages=rec)
+    if len(out) < 2:
+        raise RuntimeError(f"facade_breakdown: traced only {sorted(out)}")
+    return out
 
 
 if __name__ == "__main__":

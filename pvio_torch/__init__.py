@@ -6,18 +6,28 @@ functions it matches. The port imports `torch` and never `jax` or
 `pvio_tpu`. Its hand-written Hopper kernels live in `pvio_torch/csrc/` and
 are built with nvcc at first use into `pvio_torch/_build/`.
 
-Entry point of the ported slice (per-frame frontend + motion step):
+Public API (planes off until the plane slice is ported):
 
-    from pvio_torch import Config, DeviceKernels
-    kern = DeviceKernels(Config())          # CUDA; device="cpu" to opt out
-    pyr, resp, kp, mask = kern.first_frame_step(image_u8)
+    from pvio_torch import PVIO, Config
+    vio = PVIO(Config(), enable_planes=False)   # CUDA; device="cpu" to opt out
+    vio.track_gyroscope(t, x, y, z)
+    vio.track_accelerometer(t, x, y, z)
+    pose = vio.track_camera(t, image_u8)
+
+The device steps alone: `DeviceKernels(Config())`.
 """
 
-__all__ = ["Config", "DeviceKernels"]
+__all__ = ["Config", "DeviceKernels", "PVIO", "OutputPose", "OutputState",
+           "OutputMapPoint", "OutputPlane"]
 
 _LAZY = {
     "Config": ("pvio_torch.io.config", "Config"),
     "DeviceKernels": ("pvio_torch.core.kernels", "DeviceKernels"),
+    "PVIO": ("pvio_torch.api", "PVIO"),
+    "OutputPose": ("pvio_torch.api", "OutputPose"),
+    "OutputState": ("pvio_torch.api", "OutputState"),
+    "OutputMapPoint": ("pvio_torch.api", "OutputMapPoint"),
+    "OutputPlane": ("pvio_torch.api", "OutputPlane"),
 }
 
 

@@ -1,17 +1,21 @@
-"""Fixed-budget 8-point F-RANSAC, the post-KLT outlier gate.
+"""Vmapped fixed-budget RANSAC estimators: the 8-point F-RANSAC gate after
+KLT and the initializer's two-view models.
 
-Matches `pvio_tpu/frontend/ransac.py`: `_sample_indices`, `_ge_solve` and
-`find_fundamental`. The hypothesis batch is drawn with the port's
+Matches `pvio_tpu/frontend/ransac.py`: `_sample_indices`, `_ge_solve`,
+`find_essential` (5-point, 64 hypotheses x 10 roots), `find_homography`
+(4-point, 256 hypotheses) and `find_fundamental`; the reference's vmaps
+over hypotheses are batch dims. The hypothesis batch is drawn with the port's
 bit-exact threefry `uniform` (`utils/threefry.py`) from the same key data,
 so the port scores the very hypotheses the reference scores. The uniform
 draw uses the pipeline dtype, as the reference's default-dtype draw does
-(float64 under the tests' x64, float32 in production). `find_essential`,
-`find_homography` and `find_plane` wait for the initializer slice.
+(float64 under the tests' x64, float32 in production). `find_plane` and
+`refine_plane_pca` wait for the plane slice.
 """
 
 import torch
 
 from pvio_torch.geometry import essential as ess
+from pvio_torch.geometry import homography as hom
 from pvio_torch.utils import threefry
 
 
@@ -23,6 +27,36 @@ def _sample_indices(key_data, n_hyp, n_sample, mask, dtype):
     keys = torch.where(mask[None, :], keys, torch.full_like(keys, -1.0))
     _, idx = torch.sort(keys, dim=-1, descending=True, stable=True)
     return idx[:, :n_sample]
+
+
+def find_essential(key_data, x1, x2, mask, threshold=1.0, n_hyp=64):
+    """5-pt RANSAC for E on normalized coords: symmetric epipolar error
+    < 2 * 3.84 * threshold^2; candidates without a real root count -1.
+    Returns (E, inlier_mask, count)."""
+    thr = 2.0 * 3.84 * threshold * threshold
+    idx = _sample_indices(key_data, n_hyp, 5, mask, x1.dtype)
+    Es, ok = ess.solve_essential_5pt(x1[idx], x2[idx])       # (H, 10, 3, 3)
+    Es = Es.reshape(-1, 3, 3)
+    ok = ok.reshape(-1)
+    errs = ess.essential_symmetric_error(Es, x1, x2)          # (H*10, N)
+    inls = (errs < thr) & mask[None, :]
+    counts = torch.where(ok, torch.sum(inls, dim=-1), torch.full_like(ok, -1, dtype=torch.int64))
+    best = torch.argmax(counts)
+    return Es[best], inls[best], counts[best]
+
+
+def find_homography(key_data, x1, x2, mask, threshold=1.0, n_hyp=256):
+    """4-pt RANSAC for H on normalized coords (two-sided transfer error
+    < 2 * 5.99 * threshold^2). Returns (H, inlier_mask, count)."""
+    thr = 2.0 * 5.99 * threshold * threshold
+    idx = _sample_indices(key_data, n_hyp, 4, mask, x1.dtype)
+    Hs = hom.solve_homography(x1[idx], x2[idx])               # (H, 3, 3)
+    errs = (hom.homography_geometric_error(Hs, x1, x2)
+            + hom.homography_geometric_error(hom.inv3(Hs), x2, x1))
+    inls = (errs < thr) & mask[None, :]
+    counts = torch.sum(inls, dim=-1)
+    best = torch.argmax(counts)
+    return Hs[best], inls[best], counts[best]
 
 
 def _ge_solve(A, b):

@@ -1,12 +1,14 @@
 """Multi-view DLT triangulation, batched and masked.
 
 Matches `pvio_tpu/geometry/triangulation.py`: `_dlt_rows`,
-`triangulate_homogeneous` and `triangulate_scored` (`MAX_DEPTH` = 100).
+`triangulate_homogeneous`, `triangulate_scored` (`MAX_DEPTH` = 100),
+`pose_matrix`, `triangulate_two_view` and `select_rt_hypothesis`
+(`triangulation.py:24-141`; the vmap over hypotheses is a batch dim).
 The homogeneous point is the smallest eigenvector of A^T A
 (`torch.linalg.eigh` for `jnp.linalg.eigh`). Its sign is arbitrary: the
 valid point q[:3] / w does not depend on it, but the direction returned
 for invalid tracks does, so callers compare invalid entries by their flag
-only. Two-view bootstrapping waits for the initializer slice.
+only.
 """
 
 import torch
@@ -58,3 +60,53 @@ def triangulate_scored(Ps, xs, mask=None):
     dirn = q[..., :3] / torch.linalg.norm(q[..., :3], dim=-1, keepdim=True)
     point = torch.where(valid[..., None], p_valid, dirn)
     return point, valid, score
+
+
+def pose_matrix(R, t):
+    """(..., 3, 3), (..., 3) -> (..., 3, 4) projection [R | t]."""
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
+def triangulate_two_view(R, t, x1, x2):
+    """Two-view batch: R (..., 3, 3) / t (..., 3) map frame-1 coords into
+    frame 2 (P1 = [I|0], P2 = [R|t]); x1, x2 (N, 2). Returns (point
+    (..., N, 3), valid (..., N), score (..., N))."""
+    lead = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    N = x1.shape[-2]
+    eye = torch.eye(3, 4, dtype=x1.dtype, device=x1.device)
+    P1 = eye.expand(*lead, N, 3, 4)
+    P2 = pose_matrix(R, t)[..., None, :, :].expand(*lead, N, 3, 4)
+    Ps = torch.stack([P1, P2], dim=-3)
+    xs = torch.stack([x1, x2], dim=-2).expand(*lead, N, 2, 2)
+    return triangulate_scored(Ps, xs)
+
+
+def select_rt_hypothesis(Rs, Ts, x1, x2, count_threshold=0, R_prior=None,
+                         prior_max_angle=None):
+    """Choose among H candidate (R, T) pairs by triangulating all N matches
+    under each. Rs (H, 3, 3), Ts (H, 3), x1/x2 (N, 2). Returns (best_idx,
+    points (N, 3), status (N,) bool, count).
+
+    Hypotheses whose count exceeds `count_threshold` compete on their mean
+    score, else on the count (first index on ties). With `R_prior` (3, 3)
+    and `prior_max_angle` (rad), hypotheses farther than the bound from
+    the prior are ruled out whenever at least one lies within it."""
+    pts, valid, score = triangulate_two_view(Rs, Ts, x1, x2)
+    counts = torch.sum(valid, dim=-1)
+    total = torch.sum(torch.where(valid, score, torch.zeros_like(score)), dim=-1)
+    scores = total / torch.clamp(counts, min=1).to(score.dtype)
+    passing = counts > count_threshold
+    big = torch.full_like(scores, torch.finfo(scores.dtype).max)
+    if R_prior is not None and prior_max_angle is not None:
+        dR = Rs @ R_prior.T
+        tr = dR[:, 0, 0] + dR[:, 1, 1] + dR[:, 2, 2]
+        ang = torch.arccos(torch.clamp(0.5 * (tr - 1.0), -1.0, 1.0))
+        within = ang < prior_max_angle
+        keep = within | ~torch.any(within)
+        scores = torch.where(keep, scores, big)
+        counts = torch.where(keep, counts, torch.zeros_like(counts))
+        passing = passing & keep
+    best_by_score = torch.argmin(torch.where(passing, scores, big))
+    best_by_count = torch.argmax(counts)
+    best = torch.where(torch.any(passing), best_by_score, best_by_count)
+    return best, pts[best], valid[best], counts[best]

@@ -2,7 +2,10 @@
 
 Numpy-only copies of what the port's smoke run and tests need from
 `pvio_tpu/io/synthetic.py`: `make_scene` (`synthetic.py:193`),
-`project_points` and `render_frame` (`:706-760`), plus
+`pipeline_config`, `OracleFeatureSource` (emitting the port's `RawFrame`),
+`_value_noise_hash`, `fractal_texture`, `_room_rays`, `render_frame_room`
+(pinhole only: distorted renders need `io/undistort`, not ported),
+`render_frame` and `project_points` (`:433-760`), plus
 `solver_window_from_scene` and `flag_plane_tracks` (`:300-430`) built on
 the port's preintegration and window types. The scene generator and the
 renderers are the reference's code verbatim, so a seed gives the same
@@ -294,6 +297,220 @@ def make_scene(
         points=pts, plane_of_point=plane_of_point,
         plane_normals=plane_normals, plane_distances=plane_distances,
     )
+
+
+
+def pipeline_config():
+    """Config preset for running the full pipeline on the built-in
+    synthetic scene (small image, small window; used by the CLI runner
+    and the timing scripts)."""
+    from pvio_torch.io.config import Config
+
+    cfg = Config()
+    cfg.camera_intrinsic = np.array([200.0, 200.0, 160.0, 120.0])
+    cfg.image_size = (320, 240)
+    cfg.sliding_window_size = 6
+    cfg.window_frame_capacity = 7
+    cfg.track_capacity = 128
+    cfg.initializer_keyframe_gap = 4
+    cfg.initializer_min_matches = 20
+    cfg.initializer_min_parallax = 5.0
+    cfg.initializer_min_triangulation = 15
+    cfg.initializer_min_landmarks = 15
+    cfg.keyframe_min_common_tracks = 20
+    cfg.keyframe_parallax_px = 25.0
+    return cfg
+
+
+class OracleFeatureSource:
+    """Drop-in stand-in for core.feature_tracker.FeatureTracker that emits
+    RawFrames with *projected* keypoints (+ optional pixel noise) instead
+    of running detection/KLT on images. Track ids are landmark indices, so
+    data association is perfect. Used by golden-run tests to isolate the
+    estimation chain from front-end fidelity, and by benchmarks to drive
+    the solver at full rate."""
+
+    def __init__(self, scene: SyntheticScene, K, image_size, max_keypoints=150,
+                 kp_noise_px=0.0, seed=0, q_bc=None, p_bc=None):
+        from pvio_torch.core.feature_tracker import RawFrame
+
+        self.frames = []
+        self.initialized = False
+        self._RawFrame = RawFrame
+        self.scene = scene
+        self.K = K
+        self.image_size = image_size
+        self.max_keypoints = max_keypoints
+        self.rng = np.random.default_rng(seed)
+        self.kp_noise_px = kp_noise_px
+        self.q_bc = q_bc
+        self.p_bc = p_bc
+        self.max_frames = 1000
+
+    def make_frame(self, frame_id, frame_index, imu_ts, imu_w, imu_a):
+        W, H = self.image_size
+        kp, vis = project_points(self.scene, np.array([frame_index]),
+                                 self.q_bc, self.p_bc, max_angle_tan=10.0)
+        fx, fy = self.K[0, 0], self.K[1, 1]
+        cx, cy = self.K[0, 2], self.K[1, 2]
+        px = kp[0, :, 0] * fx + cx
+        py = kp[0, :, 1] * fy + cy
+        ok = vis[0] & (px > 20) & (px < W - 20) & (py > 20) & (py < H - 20)
+        idx = np.nonzero(ok)[0][: self.max_keypoints]
+        Kmax = self.max_keypoints
+        kpa = np.zeros((Kmax, 2))
+        mask = np.zeros(Kmax, bool)
+        ids = -np.ones(Kmax, np.int64)
+        n = len(idx)
+        kpa[:n, 0] = px[idx]
+        kpa[:n, 1] = py[idx]
+        if self.kp_noise_px > 0:
+            kpa[:n] += self.rng.normal(size=(n, 2)) * self.kp_noise_px
+        mask[:n] = True
+        ids[:n] = idx
+        rf = self._RawFrame(frame_id, float(self.scene.frame_t[frame_index]),
+                            kpa, mask, ids, np.asarray(imu_ts),
+                            np.asarray(imu_w), np.asarray(imu_a))
+        self.frames.append(rf)
+        while len(self.frames) > self.max_frames:
+            self.frames.pop(0)
+        return rf
+
+    def frame_by_id(self, frame_id):
+        for f in self.frames:
+            if f.id == frame_id:
+                return f
+        return None
+
+
+def _value_noise_hash(ix, iy, seed):
+    """Deterministic lattice hash -> [0, 1) (vectorized integer mix)."""
+    h = (ix.astype(np.int64) * 374761393 + iy.astype(np.int64) * 668265263
+         + np.int64(seed) * 1442695041) & 0x7FFFFFFF
+    h = ((h ^ (h >> 13)) * 1274126177) & 0x7FFFFFFF
+    return ((h ^ (h >> 16)) & 0xFFFFF).astype(np.float64) / float(0xFFFFF)
+
+
+def fractal_texture(u, v, seed=7, octaves=5, lacunarity=2.0, gain=0.55,
+                    base_freq=1.5):
+    """Multi-octave value noise (smoothstep-interpolated random lattice):
+    dense gradients at every scale, the corner statistics real imagery has.
+    Replaces gaussian-blob splats for frontend-in-the-loop accuracy runs
+    (blob imagery causes KLT center drift)."""
+    u = np.asarray(u, np.float64)
+    v = np.asarray(v, np.float64)
+    acc = np.zeros_like(u)
+    amp_sum = 0.0
+    freq, amp = base_freq, 1.0
+    for o in range(octaves):
+        x, y = u * freq, v * freq
+        ix, iy = np.floor(x), np.floor(y)
+        fx, fy = x - ix, y - iy
+        ix = ix.astype(np.int64)
+        iy = iy.astype(np.int64)
+        sx = fx * fx * (3.0 - 2.0 * fx)
+        sy = fy * fy * (3.0 - 2.0 * fy)
+        h00 = _value_noise_hash(ix, iy, seed + 31 * o)
+        h10 = _value_noise_hash(ix + 1, iy, seed + 31 * o)
+        h01 = _value_noise_hash(ix, iy + 1, seed + 31 * o)
+        h11 = _value_noise_hash(ix + 1, iy + 1, seed + 31 * o)
+        n = (h00 * (1 - sx) + h10 * sx) * (1 - sy) \
+            + (h01 * (1 - sx) + h11 * sx) * sy
+        acc += amp * n
+        amp_sum += amp
+        freq *= lacunarity
+        amp *= gain
+    return acc / amp_sum
+
+
+_ROOM_RAY_CACHE = {}
+
+
+def _room_rays(K, image_size, distortion, distortion_model):
+    """Per-pixel camera-frame ray directions of a pinhole camera (cached).
+    Distorted renders need io/undistort, which the port does not have."""
+    key = (image_size, np.asarray(K).tobytes(),
+           None if distortion is None else tuple(np.asarray(distortion)),
+           distortion_model)
+    hit = _ROOM_RAY_CACHE.get(key)
+    if hit is not None:
+        return hit
+    W, H = image_size
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    xs = (np.arange(W) - cx) / fx
+    ys = (np.arange(H) - cy) / fy
+    X, Y = np.meshgrid(xs, ys)
+    if distortion is not None and distortion_model not in (None, "none"):
+        raise NotImplementedError("render_frame_room: lens distortion needs io/undistort, "
+                                  "which is not ported")
+    dirs = np.stack([X, Y, np.ones_like(X)], axis=-1)
+    _ROOM_RAY_CACHE[key] = dirs
+    if len(_ROOM_RAY_CACHE) > 8:
+        _ROOM_RAY_CACHE.pop(next(iter(_ROOM_RAY_CACHE)))
+    return dirs
+
+
+def render_frame_room(scene: SyntheticScene, frame_index, K, image_size,
+                      q_bc=None, p_bc=None, distortion=None,
+                      distortion_model=None,
+                      box=((-4.0, 4.0), (-3.0, 3.0), (-2.5, 6.0)), seed=7,
+                      ss=2):
+    """Render one frame of a textured box-room interior: every pixel ray
+    is cast to its exit face of the axis-aligned box and sampled from a
+    multi-octave noise texture. Geometrically exact dense imagery with
+    multiple true planes (the walls), production resolutions, and optional
+    radtan/equidistant lens distortion (not in the port) — the stand-in for EuRoC/TUM-VI
+    golden-run imagery (SURVEY §4). Returns (H, W) float32 in [0, 1].
+
+    `ss`: supersampling factor. ss=2 renders at twice the resolution and
+    box-downsamples — the camera-PSF anti-aliasing a real sensor has.
+    Aliased (ss=1) imagery makes subpixel KLT drift several times worse,
+    which no real camera exhibits."""
+    if ss > 1:
+        W, H = image_size
+        Kss = np.array(K, float).copy()
+        Kss[0, 0] *= ss
+        Kss[1, 1] *= ss
+        Kss[0, 2] = Kss[0, 2] * ss + (ss - 1) * 0.5
+        Kss[1, 2] = Kss[1, 2] * ss + (ss - 1) * 0.5
+        hi = render_frame_room(scene, frame_index, Kss, (W * ss, H * ss),
+                               q_bc=q_bc, p_bc=p_bc, distortion=distortion,
+                               distortion_model=distortion_model, box=box,
+                               seed=seed, ss=1)
+        return hi.reshape(H, ss, W, ss).mean(axis=(1, 3)).astype(np.float32)
+    if q_bc is None:
+        q_bc = np.array([1.0, 0, 0, 0])
+    if p_bc is None:
+        p_bc = np.zeros(3)
+    q = scene.q_wb[frame_index]
+    p = scene.p_wb[frame_index]
+    q_wc = _np_quat_mul(q, q_bc)
+    p_wc = p + _np_quat_rotate(q, p_bc)
+    R_wc = _np_quat_to_mat(q_wc)
+    dirs = _room_rays(K, image_size, distortion, distortion_model) @ R_wc.T
+
+    # exit point of the box (camera is inside): per axis the positive-t
+    # face crossing, overall hit = nearest crossing
+    eps = 1e-12
+    t_ax = np.empty(dirs.shape[:2] + (3,))
+    for a in range(3):
+        lo, hi = box[a]
+        d = dirs[..., a]
+        o = p_wc[a]
+        t_ax[..., a] = np.where(
+            d > eps, (hi - o) / np.where(d > eps, d, 1.0),
+            np.where(d < -eps, (lo - o) / np.where(d < -eps, d, 1.0), np.inf))
+    axis = np.argmin(t_ax, axis=-1)
+    t = np.take_along_axis(t_ax, axis[..., None], axis=-1)[..., 0]
+    hit = p_wc + t[..., None] * dirs
+    face = axis * 2 + (np.take_along_axis(
+        dirs, axis[..., None], axis=-1)[..., 0] > 0)
+    # texture coords = the two in-face coordinates, decorrelated per face
+    u = np.where(axis == 0, hit[..., 1], hit[..., 0]) + 137.31 * face
+    v = np.where(axis == 2, hit[..., 1], hit[..., 2]) + 91.73 * face
+    img = 0.15 + 0.8 * fractal_texture(u, v, seed=seed)
+    shade = 1.0 - 0.06 * face  # slight per-face brightness step
+    return np.clip(img * shade, 0.0, 1.0).astype(np.float32)
 
 
 

@@ -8,12 +8,18 @@ the 64-bit counter i, split into (hi, lo) 32-bit words, by Threefry-2x32 with
 `bits1 << 32 | bits2`; the top mantissa bits then fill [1, 2) and 1 is
 subtracted.
 
-Reproducing the reference's bits lets the F-RANSAC gate draw the very same
+`PRNGKey(seed)` and `split(key, num)` match `jax.random.PRNGKey` and
+`jax.random.split` on raw threefry keys (uint32 pairs): the seed's high and
+low words, and new key i hashed from the counter i. The initializer draws
+its RANSAC keys that way (`pvio_tpu/core/initializer.py:71-79`).
+
+Reproducing the reference's bits lets the RANSACs draw the very same
 hypotheses (`pvio_tpu/frontend/ransac.py::_sample_indices`), so the tracking
 status masks can be compared exactly. PyTorch has no unsigned 32-bit
 arithmetic, so every word lives in an int64 tensor masked to 32 bits.
 """
 
+import numpy as np
 import torch
 
 _MASK32 = 0xFFFFFFFF
@@ -45,6 +51,8 @@ def uniform(key_data, shape, dtype, device=None):
     tensor). Bit-exact with jax.random.uniform on a threefry2x32 key."""
     if device is None:
         device = key_data.device if isinstance(key_data, torch.Tensor) else "cpu"
+    if not isinstance(key_data, torch.Tensor):
+        key_data = np.asarray(key_data).astype(np.int64)
     key = torch.as_tensor(key_data, device=device).to(torch.int64) & _MASK32
     n = 1
     for s in shape:
@@ -60,3 +68,21 @@ def uniform(key_data, shape, dtype, device=None):
     else:
         raise TypeError(f"uniform: unsupported dtype {dtype}")
     return out.reshape(tuple(shape))
+
+
+def PRNGKey(seed):
+    """(2,) uint32 numpy key of an integer seed: its high and low 32-bit
+    words (`jax.random.PRNGKey` on the threefry implementation)."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return np.array([seed >> 32, seed & _MASK32], np.uint32)
+
+
+def split(key, num=2):
+    """(num, 2) uint32 numpy keys from a (2,) key: key i is the
+    Threefry-2x32 hash of the 64-bit counter i (`jax.random.split` under
+    the partitionable threefry). Host-side: keys are tiny and are consumed
+    by `uniform`, which takes them as key data."""
+    key = torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64))
+    count = torch.arange(int(num), dtype=torch.int64)
+    b1, b2 = threefry2x32(key[0], key[1], count >> 32, count & _MASK32)
+    return torch.stack([b1, b2], dim=-1).numpy().astype(np.uint32)

@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-against their plain versions, and the keyframe step on the card against the
-CPU.
+against their plain versions, and the keyframe step and the PVIO facade on
+the card against the CPU.
 
 They carry the `cuda` marker and skip without a card. The file imports
 neither jax nor the reference, so it also runs where JAX is not
@@ -223,3 +223,118 @@ def test_kf_step_chained_is_kf_step_on_card():
     la, lb = cs.leaves(a), cs.leaves(b)
     assert len(la) == len(lb) == 49
     assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+# ---------------------------------------------------------------------------
+# the facade on the card against the CPU (float32, the pipeline tests'
+# small configuration, planes off, rendered blob frames)
+
+# measured on an H100 (700 W), float32: the initialized pose 1.6e-5 m apart
+# and at most 2.8e-5 m until the first host decision differs, after frame
+# 25 (the second keyframe step after initialization: 6 observations and 1
+# track of the window). From there the trajectories step apart at keyframes,
+# 4.2e-3 -> 1.1e-2 -> 2.2e-2 m, ATE 0.118 vs 0.117 m. float64, the card's
+# pipelined depth 2 + chained run against the CPU's sequential one: no
+# decision differs, 6.2e-9 m. The bounds keep ~2-16x margin.
+MAX_FACADE_INIT_DP_M = 1e-4
+MAX_FACADE_DP_M = 5e-2
+MAX_FACADE_DATE_M = 1e-2
+MAX_FACADE_F64_DP_M = 1e-7
+
+SMALL = dict(camera_intrinsic=np.array([200.0, 200.0, 160.0, 120.0]), image_size=(320, 240),
+             sliding_window_size=6, window_frame_capacity=7, track_capacity=96,
+             feature_tracker_max_keypoint_detection=60,
+             feature_tracker_min_keypoint_distance=12.0, initializer_keyframe_gap=4,
+             initializer_min_matches=20, initializer_min_parallax=5.0,
+             initializer_min_triangulation=15, initializer_min_landmarks=15,
+             keyframe_min_common_tracks=20, keyframe_parallax_px=25.0,
+             solver_iteration_limit=8, initializer_max_scale=5.0,
+             feature_tracker_detect_min_free=8)
+
+
+def _blob_stream():
+    import chip_smoke as cs
+    from pvio_torch.io import synthetic
+
+    cfg = cs.facade_config(**SMALL)
+    scene = synthetic.make_scene(duration=2.5, fps=20.0, imu_rate=200.0, n_points=320, seed=648)
+    images = [synthetic.render_frame(scene, fi, cfg.K, cfg.image_size).astype(np.float32)
+              for fi in range(len(scene.frame_t))]
+    torch.set_num_threads(max(1, os.cpu_count() or 1))
+    return scene, images
+
+
+@pytest.mark.cuda
+def test_facade_on_card_matches_cpu():
+    """pvio_torch.PVIO on the card and on the CPU at float32 over the same
+    stream: the same initialization frame and keyframe count; positions
+    within MAX_FACADE_INIT_DP_M until the first call after which a host
+    decision differs (KLT status, track ids, the window's frames,
+    keyframes, tracks, flags or observations), within MAX_FACADE_DP_M
+    after it, and ATEs within MAX_FACADE_DATE_M. The init scale gate is
+    raised as the golden runs raise it: at the production 1.0 this scene's
+    attempts sit near the gate, where float32 rounding can decide the
+    initialization frame. test_facade_on_card_float64_matches_cpu is the
+    witness that the card's facade path itself adds no gap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+
+    scene, images = _blob_stream()
+    card = cs.run_facade(cs.facade_config(**SMALL), scene, images)
+    cpu = cs.run_facade(cs.facade_config(**SMALL), scene, images, device="cpu")
+    assert card["launches"] == card["n_frames"]
+    for rec in (card, cpu):
+        assert rec["initialized"] and rec["n_reinits"] == 0
+    assert card["init_fi"] == cpu["init_fi"] and card["keyframes"] == cpu["keyframes"]
+    assert [t for t, _, _ in card["traj"]] == [t for t, _, _ in cpu["traj"]]
+    flip, dp_agreed, dp = cs.facade_gap(card, cpu, scene)
+    dps = [float(np.abs(a - b).max()) for (_, _, a), (_, _, b) in zip(card["traj"], cpu["traj"])]
+    print(f"facade card vs CPU, float32: init frame {card['init_fi']}, {card['keyframes']} "
+          f"keyframes, {len(card['traj'])} poses, first decision flip "
+          f"{'none' if flip is None else f'after frame {flip[0]}: {flip[1]}'}, max |dp| before it "
+          f"{dp_agreed:.3e} m, over all {dp:.3e} m, per pose {[float(f'{x:.2e}') for x in dps]}, "
+          f"ATE card {cs.facade_ate(card['traj'], scene):.6f} m, "
+          f"CPU {cs.facade_ate(cpu['traj'], scene):.6f} m")
+    assert dp_agreed <= MAX_FACADE_INIT_DP_M, dp_agreed
+    assert dp <= (MAX_FACADE_INIT_DP_M if flip is None else MAX_FACADE_DP_M), (flip, dp)
+    date = abs(cs.facade_ate(card["traj"], scene) - cs.facade_ate(cpu["traj"], scene))
+    assert date <= MAX_FACADE_DATE_M, date
+
+
+@pytest.mark.cuda
+def test_facade_on_card_float64_matches_cpu():
+    """The witness of test_facade_on_card_matches_cpu: the same stream at
+    float64, detection on every frame. On the card the sequential loop and
+    the pipelined loop at depth 2 with fused and chained keyframes (the
+    packed uploads, the fetches, the chained hand-off) agree bit for bit
+    under deterministic algorithms; against the CPU's sequential loop no
+    host decision differs, and positions agree within
+    MAX_FACADE_F64_DP_M."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+
+    scene, images = _blob_stream()
+    common = dict(SMALL, dtype="float64", fused_keyframe=True, feature_tracker_detect_min_free=0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        card = cs.run_facade(cs.facade_config(**common), scene, images)
+        pipe = cs.run_facade(cs.facade_config(**common, pipelined_host=True, pipeline_depth=2,
+                                              chained_keyframe=True), scene, images)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    cpu = cs.run_facade(cs.facade_config(**common), scene, images, device="cpu")
+    assert pipe["depth"] == 2 and card["launches"] == pipe["launches"] == card["n_frames"]
+    assert len(card["traj"]) == len(pipe["traj"])
+    for (t1, q1, p1), (t2, q2, p2) in zip(card["traj"], pipe["traj"]):
+        assert t1 == t2 and np.array_equal(q1, q2) and np.array_equal(p1, p2), t1
+    for rec in (card, cpu):
+        assert rec["initialized"] and rec["n_reinits"] == 0
+    assert card["init_fi"] == cpu["init_fi"] and card["keyframes"] == cpu["keyframes"]
+    flip, _, dp = cs.facade_gap(card, cpu, scene)
+    print(f"facade card vs CPU, float64: init frame {card['init_fi']}, {card['keyframes']} "
+          f"keyframes, {len(card['traj'])} poses, card sequential == pipelined depth 2 + chained, "
+          f"first decision flip {'none' if flip is None else f'after frame {flip[0]}: {flip[1]}'}, "
+          f"max |dp| {dp:.3e} m")
+    assert flip is None and dp <= MAX_FACADE_F64_DP_M, (flip, dp)

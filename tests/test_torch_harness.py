@@ -62,6 +62,36 @@ def assert_rel(port, ref, tol, what=""):
     assert err <= tol * scale, f"{what}: max err {err:.3e} > {tol:.0e} x {scale:.3e}"
 
 
+def small_config(cls=None, **kw):
+    """The reference pipeline tests' `small_config` (`tests/test_pipeline.py:
+    25-47`: 320x240, window 6, 96 tracks, float64, planes off) as a Config
+    of `cls` (the port's by default)."""
+    if cls is None:
+        from pvio_torch.io.config import Config as cls
+    cfg = cls()
+    cfg.camera_intrinsic = np.array([200.0, 200.0, 160.0, 120.0])
+    cfg.image_size = (320, 240)
+    cfg.sliding_window_size = 6
+    cfg.window_frame_capacity = 7
+    cfg.track_capacity = 96
+    cfg.feature_tracker_max_keypoint_detection = 60
+    cfg.feature_tracker_min_keypoint_distance = 12.0
+    cfg.initializer_keyframe_gap = 4
+    cfg.initializer_min_matches = 20
+    cfg.initializer_min_parallax = 5.0
+    cfg.initializer_min_triangulation = 15
+    cfg.initializer_min_landmarks = 15
+    cfg.keyframe_min_common_tracks = 20
+    cfg.keyframe_parallax_px = 25.0
+    cfg.solver_iteration_limit = 8
+    cfg.dtype = "float64"
+    cfg.enable_plane_constraint = False
+    cfg.imu_buffer_capacity = 64
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
 def assert_same(port, ref, what=""):
     """Masks, index sets and counts: identical."""
     a, b = npy(port), npy(ref)
