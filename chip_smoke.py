@@ -8,7 +8,9 @@ the port's main path, bench.py's coupled chain, at the production size
 (Config() defaults, float32, planes on: 480x752 frames, 150 keypoint slots,
 9 frame slots x 256 tracks x 8 planes, 64 IMU samples) through the entry
 points a user calls: `DeviceKernels.first_frame_step`, `frame_step`,
-`pnp_step`, `ba_step`, `marg_step`, `kf_step` and `kf_step_chained`.
+`pnp_step`, `ba_step`, `marg_step`, `kf_step` and `kf_step_chained`; then
+the `PVIO` facade, planes off and with `Config()`'s planes on, and the CLI
+(`python -m pvio_torch.run`).
 
 Phases; each raises on failure, so any failure exits non-zero:
   1. device and build: the card's name and power limit, the kernels built
@@ -37,29 +39,39 @@ Phases; each raises on failure, so any failure exits non-zero:
      kf_step_chained, and of one BA solve with each preintegration path;
   5. the same chain through the port on the CPU at float32, and the
      agreement of the two runs (frames and keyframes);
-  6. the facade: `pvio_torch.PVIO` (Config() float32, planes off, the init
-     scale gate raised as the golden runs do) on a camera + IMU stream of
-     the synthetic scene rendered as a textured room at 480x752 (uint8),
-     under deterministic algorithms: at Config()'s detect-skip, run
-     sequentially and then pipelined with fused and chained keyframes
-     (Core caps the depth at 1, as the reference's `run.py --fast` runs);
-     then the same pair with detection on every frame, which lets the
-     pipelined run keep two frames in flight. Each run must initialize,
-     never re-initialize, emit a pose for every frame after
-     initialization (less the frames in flight: the pipeline depth and
-     the SWT stage), launch K1 once per frame and keep its ATE under
-     FACADE_MAX_ATE_M; the runs of a pair must be identical bit for bit,
-     and the native sensor hub must have built. Prints the initialization
-     frame, the keyframes, the initializing call's time and the median ms
-     per `track_camera` call by state. Last, the first FACADE_CPU_FRAMES
-     frames through the port on the CPU, at float32 against the card's
-     sequential run and at float64 against a card run at float64: the same
-     initialization frame, the first call after which a host decision (KLT
-     status, track ids, the window's frames, keyframes, tracks, flags,
-     observations) differs (none may at float64), and the card's positions
-     within MAX_FACADE_F32_DP_M / MAX_FACADE_F64_DP_M of the CPU's before
-     it;
-  7. the kernel table (JSON), the nvidia-smi line and, last, the result.
+  6. the facade: `pvio_torch.PVIO` (Config() float32, the init scale gate
+     raised as the golden runs do) on a camera + IMU stream of the
+     synthetic scene rendered as a textured room at 480x752 (uint8), under
+     deterministic algorithms, FACADE_SECONDS long, each mode run
+     sequentially and then pipelined with fused and chained keyframes:
+     planes off at Config()'s detect-skip (Core caps the depth at 1, as the
+     reference's `run.py --fast` runs it) and on the first
+     FACADE_FAST_FRAMES frames with detection on every frame (two frames in
+     flight); then planes on (Config()'s default) at the detect-skip. Each run must initialize,
+     never re-initialize, emit a pose for every frame after initialization
+     (less the frames in flight: the pipeline depth and the SWT stage),
+     launch K1 once per frame and keep its ATE under FACADE_MAX_ATE_M; the
+     runs of a pair must be identical bit for bit, and the native sensor
+     hub must have built. The planes-on runs must detect a plane and hold
+     PLANES_MIN_TRACKS plane tracks; they print the planes detected, the
+     slots in use at the end, the plane tracks, the keyframe steps in
+     which `promote_pending`, `extend_planes`, `merge_planes` and
+     `update_parameters` changed the window, and each plane stage's median
+     host ms. Every run prints the initialization frame, the keyframes, the
+     initializing call's time and the median ms per `track_camera` call by
+     state. Then the first FACADE_CPU_FRAMES frames through the port on the
+     CPU (planes off), at float32 against the card's sequential run and at
+     float64 against a card run at float64: the same initialization frame,
+     the first call after which a host decision (KLT status, track ids, the
+     window's frames, keyframes, tracks, flags, observations, plane slots,
+     plane ids and the tracks' planes) differs (none may at float64), and
+     the card's positions within MAX_FACADE_F32_DP_M / MAX_FACADE_F64_DP_M
+     of the CPU's before it. Last, the CLI on the card in a process of its
+     own, `python -m pvio_torch.run synthetic --fast` (planes on): exit 0,
+     one TUM line per pose it reports, finite poses and its printed ATE
+     under CLI_MAX_ATE_M;
+  7. the kernel table (JSON; K1's launches are the planes-on sequential
+     run's), the total time, the nvidia-smi line and, last, the result.
 
 Exits non-zero, printing no result, when CUDA is not available or the
 port's package is not beside this script.
@@ -109,6 +121,20 @@ MAX_KF_PRIOR_REL = 5e-2
 FACADE_SECONDS = 4.5
 FACADE_MAX_ATE_M = 0.10
 FACADE_CPU_FRAMES = 50
+# the min_free-0 pair runs the first FACADE_FAST_FRAMES frames
+FACADE_FAST_FRAMES = 60
+# the planes-on facade runs the same FACADE_SECONDS stream (its first plane
+# enters the window after frame 48 of 90 on an H100) and must hold at
+# least PLANES_MIN_TRACKS plane tracks after some call
+PLANES_MIN_TRACKS = 10
+# the CLI on the card: `python -m pvio_torch.run synthetic --fast`, and a
+# bound on the ATE it prints that catches a diverged run. The built-in
+# scene (blob frames, the production init scale gate) is not a golden run:
+# measured on an H100 (700 W), its float32 run initializes three frames
+# after the CPU's float32 run (36 poses against 39) and reads 0.269 m
+# (the CPU 0.069 m); at float64 card and CPU agree (0.069 m, 36 poses).
+CLI_MAX_ATE_M = 0.5
+CLI_TIMEOUT_S = 400
 # card vs CPU facade over FACADE_CPU_FRAMES frames: positions until the
 # first host decision that differs. Measured on an H100 (700 W): no
 # decision differs; float32 2.2e-5 m at initialization, 5.1e-4 m from the
@@ -475,7 +501,7 @@ def decisions(vio):
     raw frame's keypoint mask and track ids (KLT status, detections
     merged) and, once initialized, the window's integer and boolean
     mirrors (frames kept, keyframes, tracks kept, their flags and
-    observations)."""
+    observations, plane slots, plane ids and the tracks' planes)."""
     out = {}
     ft = vio.core.feature_tracker
     if ft.frames:
@@ -484,7 +510,7 @@ def decisions(vio):
     swt = vio.core.frontend.swt
     if swt is not None:
         for name in ("frame_mask", "keyframe", "frame_id", "track_mask", "track_flags",
-                     "track_id", "obs_mask"):
+                     "track_id", "obs_mask", "plane_mask", "plane_ids", "plane_id"):
             out[name] = getattr(swt.hw, name).copy()
     return out
 
@@ -501,19 +527,59 @@ def first_flip(a, b):
     return None
 
 
-def run_facade(cfg, scene, images, device=None, n_frames=None):
+def instrument_planes(pe, log, kf_calls):
+    """Wrap a PlaneExtractor's keyframe stages to log the host ms of each
+    call and the keyframe steps (by count so far) in which each changed
+    the window: a plane promoted, tracks adopted, planes merged, plane
+    parameters refit."""
+    from pvio_torch.map.window import TF_PLANE
+
+    def plane_tracks(hw):
+        return int(((hw.track_flags & TF_PLANE) != 0).sum())
+
+    def wrap(name, changed):
+        fn = getattr(pe, name)
+
+        def wrapped(hw, *a, **k):
+            before = (int(hw.plane_mask.sum()), plane_tracks(hw), hw.plane_normal.copy(),
+                      hw.plane_distance.copy())
+            t0 = time.perf_counter()
+            out = fn(hw, *a, **k)
+            log["ms"].setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
+            if name == "issue_detection" and out is not None:
+                log["issued"] += 1
+            delta = changed(before, hw)
+            if delta:
+                log[name].append((kf_calls[0], delta))
+            return out
+        setattr(pe, name, wrapped)
+
+    wrap("issue_detection", lambda b, hw: 0)
+    wrap("promote_pending", lambda b, hw: int(hw.plane_mask.sum()) - b[0])
+    wrap("extend_planes", lambda b, hw: plane_tracks(hw) - b[1])
+    wrap("merge_planes", lambda b, hw: b[0] - int(hw.plane_mask.sum()))
+    wrap("update_parameters", lambda b, hw: int(
+        ((hw.plane_normal != b[2]).any(axis=1) | (hw.plane_distance != b[3]))[hw.plane_mask].sum()))
+
+
+def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None):
     """Drive pvio_torch.PVIO over the stream (IMU first, then each frame
     at its time; the first n_frames frames, or all) with K1's count zeroed
-    just before. Returns the run's record: trajectory, initialization
-    frame, re-inits, keyframe steps, K1 launches, poses before the final
-    drain, the decisions after each call and the host ms of every
-    track_camera call with its state (before / initializing / tracking /
-    keyframe: a keyframe step ran in the call)."""
+    just before; `fused_preint` overrides the BA's preintegration bank
+    (the card's is the struct-of-arrays one). Returns the run's record:
+    trajectory, initialization frame, re-inits, keyframe steps, K1
+    launches, poses before the final drain, the plane stages' log, the
+    decisions after each call and the host ms of every track_camera call
+    with its state (before / initializing / tracking / keyframe: a
+    keyframe step ran in the call)."""
     from pvio_torch import PVIO
+    from pvio_torch.map.window import TF_PLANE
     from pvio_torch.ops import stencil
 
     vio = PVIO(cfg, device=device)
     kern = vio.core.kernels
+    if fused_preint is not None:               # the BA's preintegration bank
+        kern.ba_cfg = kern.ba_cfg._replace(fused_preint=fused_preint)
     kf_calls, inside = [0], [False]
     for name in ("kf_step", "kf_step_chained", "ba_step"):
         def counted(*a, _fn=getattr(kern, name), **k):
@@ -526,6 +592,18 @@ def run_facade(cfg, scene, images, device=None, n_frames=None):
             finally:
                 inside[0] = False
         setattr(kern, name, counted)
+    planes = dict(ms={}, issued=0, issue_detection=[], promote_pending=[], extend_planes=[],
+                  merge_planes=[], update_parameters=[], extractors=[])
+    fw = vio.core.frontend
+    if fw._pef is not None:
+        make = fw._pef
+
+        def factory():
+            pe = make()
+            planes["extractors"].append(pe)
+            instrument_planes(pe, planes, kf_calls)
+            return pe
+        fw._pef = factory
     last = len(scene.frame_t) if n_frames is None else n_frames
     stencil.LAUNCHES = 0
     calls, decided, init_fi, init_state, fi = [], [], None, None, 0
@@ -556,7 +634,11 @@ def run_facade(cfg, scene, images, device=None, n_frames=None):
     n_before_drain = len(vio.core.outputs)
     traj = vio.get_trajectory()
     swt = vio.core.frontend.swt
-    return dict(traj=traj, init_fi=init_fi, init_state=init_state,
+    planes["detected"] = sum(pe.next_plane_id for pe in planes.pop("extractors"))
+    planes["slots_end"] = int(swt.hw.plane_mask.sum()) if swt else 0
+    planes["tracks"] = [int(((d["track_flags"] & TF_PLANE) != 0).sum()) if "track_flags" in d
+                        else 0 for d in decided]
+    return dict(traj=traj, init_fi=init_fi, init_state=init_state, planes=planes,
                 n_reinits=vio.core.frontend.n_reinits,
                 initialized=vio.initialized, keyframes=swt.n_keyframes if swt else 0,
                 kf_steps=kf_calls[0], launches=launches, n_frames=fi,
@@ -619,6 +701,59 @@ def check_facade(rec, scene, what):
     if not ate < FACADE_MAX_ATE_M:
         raise RuntimeError(f"{what}: ATE {ate} m >= {FACADE_MAX_ATE_M} m")
     return ate
+
+
+def check_planes(rec, what):
+    """Raise unless a planes-on run detected a plane and held at least
+    PLANES_MIN_TRACKS plane tracks after some call; log its plane counts,
+    the keyframe steps in which each plane stage changed the window, and
+    the stages' median host ms."""
+    pl = rec["planes"]
+    first = next((k for k, d in enumerate(rec["decisions"])
+                  if "plane_mask" in d and d["plane_mask"].any()), None)
+    log(f"[6]   planes: {pl['detected']} detected (first in the window after frame {first}), "
+        f"{pl['slots_end']} slots in use at the end, plane tracks max {max(pl['tracks'])} / "
+        f"at the end {pl['tracks'][-1]}; {pl['issued']} detections issued")
+    for name in ("promote_pending", "extend_planes", "merge_planes", "update_parameters"):
+        log(f"[6]   {name} changed the window at keyframe steps "
+            f"{[k for k, _ in pl[name]]} (by {[d for _, d in pl[name]]})")
+    log("[6]   median host ms per keyframe: " + ", ".join(
+        f"{k} {statistics.median(v):.3f} ({len(v)})" for k, v in pl["ms"].items()))
+    if pl["detected"] < 1 or max(pl["tracks"]) < PLANES_MIN_TRACKS:
+        raise RuntimeError(f"{what}: {pl['detected']} planes detected, at most "
+                           f"{max(pl['tracks'])} plane tracks (want >= 1 and >= "
+                           f"{PLANES_MIN_TRACKS})")
+
+
+def run_cli():
+    """`python -m pvio_torch.run synthetic --output <tmp> --fast` (planes on,
+    on the card) in a subprocess. Raises unless it exits 0, writes one TUM
+    line per pose it reports, and prints an ATE within CLI_MAX_ATE_M."""
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "trajectory.tum"
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        proc = subprocess.run([sys.executable, "-m", "pvio_torch.run", "synthetic", "--output",
+                               str(out), "--fast"], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=CLI_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        rows = [line.split() for line in out.read_text().splitlines()]
+    written = re.search(r"^(\d+) poses written to ", proc.stdout, re.M)
+    ate = re.search(r"^ATE RMSE \(SE3\): ([0-9.]+) cm over (\d+) poses", proc.stdout, re.M)
+    planes = re.search(r"'sliding_window_planes': (\d+)", proc.stdout)
+    if written is None or ate is None:
+        raise RuntimeError(f"the CLI printed no pose count or ATE: {proc.stdout[-2000:]}")
+    vals = np.array(rows, float) if rows else np.zeros((0, 8))
+    rec = dict(written=int(written.group(1)), lines=len(rows), ate_cm=ate.group(1),
+               ate_m=float(ate.group(1)) / 100, ate_poses=int(ate.group(2)),
+               planes=int(planes.group(1)) if planes else None)
+    if not (rec["lines"] == rec["written"] > 0 and vals.shape[1] == 8
+            and np.isfinite(vals).all() and rec["ate_m"] < CLI_MAX_ATE_M):
+        raise RuntimeError(f"the CLI run on the card failed its checks: {rec}")
+    return rec
 
 
 def state_ms(calls):
@@ -858,17 +993,19 @@ def main():
     # detection on every frame (min_free 0) lets it keep two frames in flight
     fast = dict(fused_keyframe=True, chained_keyframe=True, pipelined_host=True,
                 pipeline_depth=2)
-    pairs = (("Config() detect-skip", {}), ("detection on every frame",
-                                            dict(feature_tracker_detect_min_free=0)))
+    pairs = (("Config() detect-skip", {}, None),
+             ("detection on every frame", dict(feature_tracker_detect_min_free=0),
+              FACADE_FAST_FRAMES),
+             ("planes on, Config() detect-skip", dict(enable_plane_constraint=True), None))
     runs = {}
     torch.use_deterministic_algorithms(True)
     try:
-        for variant, base in pairs:
+        for variant, base, n_frames in pairs:
             for mode, kw in (("sequential, fused keyframes", dict(fused_keyframe=True)),
                              ("pipelined, fused + chained keyframes", fast)):
                 what = f"{variant}, {mode}"
                 t0 = time.perf_counter()
-                rec = run_facade(facade_config(**base, **kw), scene, images)
+                rec = run_facade(facade_config(**base, **kw), scene, images, n_frames=n_frames)
                 rec["seconds"], rec["what"] = time.perf_counter() - t0, what
                 rec["ate"] = check_facade(rec, scene, what)
                 runs[what] = rec
@@ -881,19 +1018,21 @@ def main():
                     f"(bound {FACADE_MAX_ATE_M} m)")
                 log(f"[6]   median ms per track_camera call: " + ", ".join(
                     f"{k} {v[0]:.3f} ({v[1]} calls)" for k, v in state_ms(rec["calls"]).items()))
+                if "enable_plane_constraint" in base:
+                    check_planes(rec, what)
     finally:
         torch.use_deterministic_algorithms(False)
     recs = list(runs.values())
-    for seq, pipe in (recs[0:2], recs[2:4]):
+    for seq, pipe in (recs[0:2], recs[2:4], recs[4:6]):
         same = len(seq["traj"]) == len(pipe["traj"]) and all(
             t1 == t2 and np.array_equal(q1, q2) and np.array_equal(p1, p2)
             for (t1, q1, p1), (t2, q2, p2) in zip(seq["traj"], pipe["traj"]))
         if not same:
             raise RuntimeError(f"{seq['what']} and its pipelined + chained run differ")
-        log(f"[6] sequential == pipelined (depth {pipe['depth']}) + chained: all "
+        log(f"[6] {seq['what']} == pipelined (depth {pipe['depth']}) + chained: all "
             f"{len(seq['traj'])} poses identical bit for bit")
     seq = recs[0]
-    launches["shi_tomasi"] = seq["launches"]
+    launches["shi_tomasi"] = recs[4]["launches"]
 
     # the first frames through the port on the CPU, at float32 against the
     # card's run above and at float64 against a card run at float64
@@ -915,6 +1054,14 @@ def main():
                 and (dt == "float32" or flip is None)):
             raise RuntimeError(f"the card and the CPU facade runs at {dt} disagree beyond the "
                                "stated bounds")
+
+    # the CLI on the card, in a process of its own
+    t0 = time.perf_counter()
+    cli = run_cli()
+    log(f"[6] CLI `python -m pvio_torch.run synthetic --fast` on the card: "
+        f"{time.perf_counter() - t0:.1f} s, rc 0, {cli['lines']} TUM lines for {cli['written']} "
+        f"poses written, ATE {cli['ate_cm']} cm as it prints it, over {cli['ate_poses']} "
+        f"poses (bound {CLI_MAX_ATE_M} m), {cli['planes']} plane slots at the end")
 
     # 7. summary -----------------------------------------------------------------
     kernels = [dict(name="shi_tomasi", route="cuda", source="pvio_torch/csrc/shi_tomasi.cu",

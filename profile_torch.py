@@ -19,16 +19,19 @@ planes on, 480x752) and reports, after one warm-up frame:
     stage synchronised before and after inside a torch.profiler trace of
     --kf-reps calls: host ms, device ms, device events launched and the
     device's busy share, per call of the step;
-  * the facade breakdown: `pvio_torch.PVIO` run sequentially with fused
-    keyframes on `chip_smoke.py`'s facade stream (480x752 room renders,
-    planes off) and, after initialization and two warm-up frames, one
-    tracked frame's and one keyframe frame's `track_camera` call traced
-    with `FeatureTracker.dispatch_frame` / `finish_frame`,
+  * the facade breakdown: `pvio_torch.PVIO` (Config(), planes on) run
+    sequentially with fused keyframes on `chip_smoke.py`'s planes-on
+    stream (480x752 room renders, FACADE_SECONDS) and, after
+    initialization and two warm-up frames, one tracked frame's
+    `track_camera` call and the first keyframe call with a plane in the
+    window, traced with `FeatureTracker.dispatch_frame` / `finish_frame`,
     `SlidingWindowTracker.track_dispatch` / `track_finish` (and within
-    them `frame_step`, `pnp_step` and the keyframe step `kf_step`) each
-    synchronised before and after: host ms, device ms, device events and
-    busy share of each, and the Core bookkeeping (the call's host time
-    outside those four).
+    them `frame_step`, `pnp_step`, the keyframe step `kf_step` and the
+    plane stages: `issue_detection` with its `find_plane` on the card,
+    `promote_pending` + `extend_planes`, `merge_planes` +
+    `update_parameters`) each synchronised before and after: host ms,
+    device ms, device events and busy share of each, and the Core
+    bookkeeping (the call's host time outside those four).
 Prints one JSON object as the last line (and writes it to --out).
 """
 
@@ -154,8 +157,9 @@ def main():
                   f"(calls {v['calls']:g})")
     for kind, rec in (result["facade"] or {}).items():
         for name, v in rec["stages"].items():
-            print(f"facade {kind:9s} (frame {rec['frame']}) {name:46s} host {v['host_ms']:9.3f} ms, device "
-                  f"{v['device_ms']:8.3f} ms, {v['device_events']:8.1f} device events")
+            print(f"facade {kind:9s} (frame {rec['frame']}, {rec['planes']} planes) {name:46s} host "
+                  f"{v['host_ms']:9.3f} ms, device {v['device_ms']:8.3f} ms, "
+                  f"{v['device_events']:8.1f} device events")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))
@@ -250,59 +254,95 @@ def keyframe_breakdown(kern, w, host, reps):
 
 def facade_breakdown():
     """One tracked frame's and one keyframe frame's track_camera call of
-    the facade, stage by stage (see the module docstring)."""
+    the planes-on facade, stage by stage (see the module docstring)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from pvio_torch import PVIO
+    from pvio_torch.core import plane_extractor as pe_mod
 
-    cfg = cs.facade_config(fused_keyframe=True)
+    cfg = cs.facade_config(fused_keyframe=True, enable_plane_constraint=True)
     scene, images = cs.facade_inputs(cfg)
     vio = PVIO(cfg)
     core = vio.core
     stages = ["FeatureTracker.dispatch_frame", "FeatureTracker.finish_frame",
               "SlidingWindowTracker.track_dispatch", "SlidingWindowTracker.track_finish"]
-    inner = ["frame_step", "pnp_step", "keyframe step (kf_step)"]
+    plane_stages = {"promote_pending": "plane: promote_pending", "extend_planes":
+                    "plane: extend_planes", "issue_detection": "plane: issue_detection",
+                    "merge_planes": "plane: merge_planes",
+                    "update_parameters": "plane: update_parameters"}
+    inner = (["frame_step", "pnp_step", "keyframe step (kf_step)", "plane: find_plane"]
+             + list(plane_stages.values()))
     kern = core.kernels
     for attr, name in (("frame_step", "frame_step"), ("frame_step_nodetect", "frame_step"),
                        ("pnp_step", "pnp_step"), ("kf_step", "keyframe step (kf_step)")):
         setattr(kern, attr, _labelled(name, getattr(kern, attr)))
+    find_plane = pe_mod.ransac_mod.find_plane
+    pe_mod.ransac_mod.find_plane = _labelled("plane: find_plane", find_plane)
+    make = core.frontend._pef
+
+    def factory():
+        pe = make()
+        for attr, name in plane_stages.items():
+            setattr(pe, attr, _labelled(name, getattr(pe, attr)))
+        return pe
+    core.frontend._pef = factory
     ft = core.feature_tracker
     ft.dispatch_frame = _labelled(stages[0], ft.dispatch_frame)
     ft.finish_frame = _labelled(stages[1], ft.finish_frame)
     out, warm, fi = {}, 0, 0
-    for k in range(len(scene.imu_t)):
-        t = scene.imu_t[k]
-        vio.track_gyroscope(t, *scene.gyro[k])
-        vio.track_accelerometer(t, *scene.accel[k])
-        while fi < len(scene.frame_t) and scene.frame_t[fi] <= t:
-            swt = core.frontend.swt
-            if swt is None or warm < 2 or len(out) == 2:
-                if swt is not None:
-                    warm += 1
-                vio.track_camera(scene.frame_t[fi], images[fi])
+    try:
+        for k in range(len(scene.imu_t)):
+            t = scene.imu_t[k]
+            vio.track_gyroscope(t, *scene.gyro[k])
+            vio.track_accelerometer(t, *scene.accel[k])
+            while fi < len(scene.frame_t) and scene.frame_t[fi] <= t:
+                swt = core.frontend.swt
+                # trace the tracked call early, the keyframe call once the
+                # window holds a plane (so every plane stage has work)
+                wanted = swt is not None and warm >= 2 and (
+                    "tracking" not in out or ("keyframe" not in out and swt.hw.plane_mask.any()))
+                if not wanted:
+                    if swt is not None:
+                        warm += 1
+                    vio.track_camera(scene.frame_t[fi], images[fi])
+                    fi += 1
+                    continue
+                if "track_dispatch" not in vars(swt):
+                    swt.track_dispatch = _labelled(stages[2], swt.track_dispatch)
+                    swt.track_finish = _labelled(stages[3], swt.track_finish)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    _labelled("track_camera", vio.track_camera)(scene.frame_t[fi], images[fi])
                 fi += 1
-                continue
-            if "track_dispatch" not in vars(swt):
-                swt.track_dispatch = _labelled(stages[2], swt.track_dispatch)
-                swt.track_finish = _labelled(stages[3], swt.track_finish)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                _labelled("track_camera", vio.track_camera)(scene.frame_t[fi], images[fi])
-            fi += 1
-            names = ["track_camera"] + stages + inner
-            rec = _attribute(prof.events(), names, 1, exclude=set(names))
-            kind = "keyframe" if "keyframe step (kf_step)" in rec else "tracking"
-            if kind in out:
-                continue
-            outside = rec["track_camera"]["host_ms"] - sum(
-                rec[n]["host_ms"] for n in stages if n in rec)
-            rec["Core bookkeeping (outside the four above)"] = dict(
-                calls=1.0, host_ms=outside, device_ms=0.0, device_events=0.0, busy_share=None)
-            out[kind] = dict(frame=fi - 1, stages=rec)
+                names = ["track_camera"] + stages + inner
+                rec = _attribute(prof.events(), names, 1, exclude=set(names))
+                kind = "keyframe" if "keyframe step (kf_step)" in rec else "tracking"
+                if kind in out:
+                    continue
+                outside = rec["track_camera"]["host_ms"] - sum(
+                    rec[n]["host_ms"] for n in stages if n in rec)
+                rec["Core bookkeeping (outside the four above)"] = dict(
+                    calls=1.0, host_ms=outside, device_ms=0.0, device_events=0.0, busy_share=None)
+                for label, parts in (("plane: promote_pending + extend_planes",
+                                      ("plane: promote_pending", "plane: extend_planes")),
+                                     ("plane: merge_planes + update_parameters",
+                                      ("plane: merge_planes", "plane: update_parameters"))):
+                    got = [rec[n] for n in parts if n in rec]
+                    if got:
+                        rec[label] = {f: sum(g[f] for g in got) for f in
+                                      ("calls", "host_ms", "device_ms", "device_events")}
+                hw = core.frontend.swt.hw if core.frontend.swt else None
+                out[kind] = dict(frame=fi - 1, stages=rec,
+                                 planes=int(hw.plane_mask.sum()) if hw is not None else 0)
+            if len(out) == 2:
+                break
+    finally:
+        pe_mod.ransac_mod.find_plane = find_plane
     if len(out) < 2:
-        raise RuntimeError(f"facade_breakdown: traced only {sorted(out)}")
+        raise RuntimeError(f"facade_breakdown: traced only {sorted(out)} (no keyframe call with a "
+                           f"plane in the window)")
     return out
 
 

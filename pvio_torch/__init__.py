@@ -6,15 +6,16 @@ functions it matches. The port imports `torch` and never `jax` or
 `pvio_tpu`. Its hand-written Hopper kernels live in `pvio_torch/csrc/` and
 are built with nvcc at first use into `pvio_torch/_build/`.
 
-Public API (planes off until the plane slice is ported):
+Public API (plane priors on, as `Config()` defaults):
 
     from pvio_torch import PVIO, Config
-    vio = PVIO(Config(), enable_planes=False)   # CUDA; device="cpu" to opt out
+    vio = PVIO(Config())                  # CUDA; device="cpu" to opt out
     vio.track_gyroscope(t, x, y, z)
     vio.track_accelerometer(t, x, y, z)
     pose = vio.track_camera(t, image_u8)
 
-The device steps alone: `DeviceKernels(Config())`.
+The device steps alone: `DeviceKernels(Config())`. From a dataset on disk:
+`python -m pvio_torch.run euroc://<dir> config/euroc.yaml` (`pvio_torch/run.py`).
 """
 
 __all__ = ["Config", "DeviceKernels", "PVIO", "OutputPose", "OutputState",

@@ -6,11 +6,12 @@ Matches `pvio_tpu/api.py`: `OutputPose`, `OutputState`, `OutputMapPoint`,
 `get_trajectory`, `get_map_points`, `get_planes`, `reset`).
 
 `PVIO(config, enable_planes=None, device=None)` runs on CUDA and raises
-when CUDA is absent, unless `device="cpu"` is passed. Plane extraction is
-not ported yet: the facade raises for a config with planes on, so pass
-`enable_planes=False` (or set `config.enable_plane_constraint = False`).
+when CUDA is absent, unless `device="cpu"` is passed. With
+`config.enable_plane_constraint` (the default) the engine builds a
+`PlaneExtractor` on its own `DeviceKernels` through `Core`'s
+`plane_extractor_factory`, as the reference does (`pvio_tpu/api.py:59-67`).
 `reset` keeps the engine's `DeviceKernels` (the reference reuses its
-compile cache there).
+compile cache there); the reset engine gets a fresh extractor.
 """
 
 from dataclasses import dataclass, field
@@ -19,6 +20,8 @@ from typing import Optional
 import numpy as np
 
 from pvio_torch.core.core import Core
+from pvio_torch.core.kernels import DeviceKernels
+from pvio_torch.core.plane_extractor import PlaneExtractor
 from pvio_torch.map.window import TF_PLANE, TF_VALID
 from pvio_torch.utils import transfer
 
@@ -62,17 +65,20 @@ class PVIO:
     def __init__(self, config, enable_planes: Optional[bool] = None, device=None):
         if enable_planes is not None:
             config.enable_plane_constraint = enable_planes
-        if config.enable_plane_constraint:
-            raise NotImplementedError(
-                "pvio_torch.PVIO: plane extraction is not ported yet; pass "
-                "enable_planes=False")
         self.config = config
-        self.core = Core(config, device=device)
+        self.core = self._build_core(DeviceKernels(config, device))
+
+    def _build_core(self, kernels):
+        factory = None
+        if self.config.enable_plane_constraint:
+            def factory():
+                return PlaneExtractor(self.config, kernels)
+        return Core(self.config, plane_extractor_factory=factory, kernels=kernels)
 
     def reset(self):
         """Drop all estimator state and restart from scratch, on the same
         DeviceKernels."""
-        self.core = Core(self.config, kernels=self.core.kernels)
+        self.core = self._build_core(self.core.kernels)
 
     # --- sensor entry points ---
     def track_gyroscope(self, t, x, y, z) -> Optional[OutputPose]:

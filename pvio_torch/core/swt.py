@@ -13,8 +13,10 @@ check; a keyframe marginalizes the oldest frame, appends and runs the
 full BA (`marg_step` + `ba_step`, or the fused `kf_step`, or
 `kf_step_chained` on the motion step's device outputs); a non-keyframe
 merges its IMU span and replaces the window tail; then track pruning and
-the landmark-starvation backstop. Planes are the next slice: the
-`plane_extractor` hooks are kept and stay None.
+the landmark-starvation backstop. With a `plane_extractor`
+(`core/plane_extractor.py`) each keyframe promotes the previous keyframe's
+detection, extends the planes, issues a new detection whose device outputs
+ride the keyframe step's fetch, then merges and refits the planes.
 
 Each step makes ONE upload (`HostWindow.to_device` with extras) and ONE
 packed copy back (`utils/transfer.Fetch`), started at dispatch time. The

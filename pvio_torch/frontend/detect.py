@@ -1,8 +1,8 @@
 """Keypoint detection: Shi-Tomasi response + Poisson-disk-spaced top-K.
 
 Matches `pvio_tpu/frontend/detect.py`: `shi_tomasi_response` (the plain
-version of kernel K1 and its oracle), `_nms` and `detect_keypoints`.
-`poisson_disk_filter` is not on the ported path yet.
+version of kernel K1 and its oracle), `_nms`, `detect_keypoints` and
+`poisson_disk_filter` (which, as in the reference, no pipeline step calls).
 
 Two details carry the reference's results:
   * `lax.top_k` orders ties by lower index, and the greedy-equivalence of
@@ -134,3 +134,24 @@ def detect_keypoints(
         sel_xy = torch.cat([sel_xy, torch.zeros((K - Kc, 2), dtype=dtype, device=dev)])
         sel_mask = torch.cat([sel_mask, torch.zeros(K - Kc, dtype=torch.bool, device=dev)])
     return sel_xy, sel_mask
+
+
+def poisson_disk_filter(xy, score, mask, min_distance, max_out):
+    """Standalone greedy Poisson-disk culling of a point set, highest score
+    first (ties by lower index). Returns (indices (max_out,), keep_mask);
+    unused entries hold index 0 and False."""
+    dev = xy.device
+    d2 = min_distance * min_distance
+    alive = torch.ones(xy.shape[0], dtype=torch.bool, device=dev)
+    sel_idx = torch.zeros(max_out, dtype=torch.int64, device=dev)
+    sel_mask = torch.zeros(max_out, dtype=torch.bool, device=dev)
+    neg_inf = torch.full_like(score, -torch.inf)
+    for k in range(max_out):
+        s = torch.where(alive & mask, score, neg_inf)
+        i = torch.argmax(s)
+        ok = s[i] > -torch.inf
+        sel_idx[k] = torch.where(ok, i, torch.zeros_like(i))
+        sel_mask[k] = ok
+        dist2 = torch.sum((xy - xy[i]) ** 2, dim=-1)
+        alive = alive & (~ok | (dist2 >= d2))
+    return sel_idx, sel_mask

@@ -8,8 +8,8 @@ over hypotheses are batch dims. The hypothesis batch is drawn with the port's
 bit-exact threefry `uniform` (`utils/threefry.py`) from the same key data,
 so the port scores the very hypotheses the reference scores. The uniform
 draw uses the pipeline dtype, as the reference's default-dtype draw does
-(float64 under the tests' x64, float32 in production). `find_plane` and
-`refine_plane_pca` wait for the plane slice.
+(float64 under the tests' x64, float32 in production). `find_plane`
+(3-point, 256 hypotheses) and `refine_plane_pca` are the plane extractor's.
 """
 
 import torch
@@ -116,3 +116,37 @@ def find_fundamental(key_data, x1, x2, mask, threshold=1.0, n_hyp=128):
     counts = torch.sum(inls, dim=-1)
     best = torch.argmax(counts)
     return Fs[best], inls[best], counts[best]
+
+
+def find_plane(key_data, points, mask, threshold=0.03, n_hyp=256):
+    """3-point RANSAC plane fit over landmark points (inlier when the
+    point-to-plane distance < threshold; degenerate triples count -1).
+    Returns (normal (3,), distance, inlier_mask, count) with n.x = d."""
+    idx = _sample_indices(key_data, n_hyp, 3, mask, points.dtype)
+    p = points[idx]                                           # (H, 3, 3)
+    n = torch.linalg.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0], dim=-1)
+    norm = torch.linalg.norm(n, dim=-1)
+    n = n / torch.where(norm < 1e-12, torch.full_like(norm, 1e-12), norm)[:, None]
+    d = torch.sum(n * p[:, 0], dim=-1)
+    errs = torch.abs(n @ points.T - d[:, None])               # (H, N)
+    inls = (errs < threshold) & mask[None, :]
+    counts = torch.where(norm > 1e-12, torch.sum(inls, dim=-1),
+                         torch.full_like(norm, -1, dtype=torch.int64))
+    best = torch.argmax(counts)
+    return n[best], d[best], inls[best], counts[best]
+
+
+def refine_plane_pca(points, inlier_mask):
+    """PCA refinement of a plane from its inliers: the normal is the
+    eigenvector of the smallest eigenvalue of the inlier scatter, oriented
+    so that the distance is >= 0. Returns (normal, distance, centroid)."""
+    m = inlier_mask.to(points.dtype)[:, None]
+    cnt = torch.clamp(torch.sum(m), min=1.0)
+    c = torch.sum(points * m, dim=0) / cnt
+    d = (points - c) * m
+    cov = d.T @ d / cnt
+    _, V = torch.linalg.eigh(cov)
+    n = V[:, 0]
+    dist = torch.dot(n, c)
+    sgn = torch.where(dist < 0, -torch.ones_like(dist), torch.ones_like(dist))
+    return n * sgn, dist * sgn, c

@@ -1,17 +1,20 @@
 """Synthetic VIO scene (host-side numpy) for driving the port without JAX.
 
-Numpy-only copies of what the port's smoke run and tests need from
+Numpy-only copies of what the port's smoke run, CLI and tests need from
 `pvio_tpu/io/synthetic.py`: `make_scene` (`synthetic.py:193`),
 `pipeline_config`, `OracleFeatureSource` (emitting the port's `RawFrame`),
-`_value_noise_hash`, `fractal_texture`, `_room_rays`, `render_frame_room`
-(pinhole only: distorted renders need `io/undistort`, not ported),
-`render_frame` and `project_points` (`:433-760`), plus
+`_value_noise_hash`, `fractal_texture`, `_room_rays` and
+`render_frame_room` (pinhole or lens-distorted rays, through the port's
+`io/undistort`), `_texture`, `render_frame_textured`, `render_frame`,
+`project_points`, `write_asl_dataset` and `load_asl_groundtruth`
+(`:433-844`), plus
 `solver_window_from_scene` and `flag_plane_tracks` (`:300-430`) built on
 the port's preintegration and window types. The scene generator and the
 renderers are the reference's code verbatim, so a seed gives the same
 scene, images and window in both packages.
 """
 
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -427,8 +430,12 @@ _ROOM_RAY_CACHE = {}
 
 
 def _room_rays(K, image_size, distortion, distortion_model):
-    """Per-pixel camera-frame ray directions of a pinhole camera (cached).
-    Distorted renders need io/undistort, which the port does not have."""
+    """Per-pixel camera-frame ray directions (cached). With a distortion
+    model the rays are those of the *distorted* pixels, so the rendered
+    image is what the physical (distorted) camera would capture and must
+    be undistorted before the pinhole pipeline — exercising io/undistort
+    in the loop like the reference datasets do (euroc_dataset_reader.cpp:
+    70-74, tum_dataset_reader.cpp:73-81)."""
     key = (image_size, np.asarray(K).tobytes(),
            None if distortion is None else tuple(np.asarray(distortion)),
            distortion_model)
@@ -441,8 +448,9 @@ def _room_rays(K, image_size, distortion, distortion_model):
     ys = (np.arange(H) - cy) / fy
     X, Y = np.meshgrid(xs, ys)
     if distortion is not None and distortion_model not in (None, "none"):
-        raise NotImplementedError("render_frame_room: lens distortion needs io/undistort, "
-                                  "which is not ported")
+        from pvio_torch.io.undistort import undistort_points
+
+        X, Y = undistort_points(X, Y, distortion, distortion_model)
     dirs = np.stack([X, Y, np.ones_like(X)], axis=-1)
     _ROOM_RAY_CACHE[key] = dirs
     if len(_ROOM_RAY_CACHE) > 8:
@@ -459,7 +467,7 @@ def render_frame_room(scene: SyntheticScene, frame_index, K, image_size,
     is cast to its exit face of the axis-aligned box and sampled from a
     multi-octave noise texture. Geometrically exact dense imagery with
     multiple true planes (the walls), production resolutions, and optional
-    radtan/equidistant lens distortion (not in the port) — the stand-in for EuRoC/TUM-VI
+    radtan/equidistant lens distortion — the stand-in for EuRoC/TUM-VI
     golden-run imagery (SURVEY §4). Returns (H, W) float32 in [0, 1].
 
     `ss`: supersampling factor. ss=2 renders at twice the resolution and
@@ -512,6 +520,60 @@ def render_frame_room(scene: SyntheticScene, frame_index, K, image_size,
     shade = 1.0 - 0.06 * face  # slight per-face brightness step
     return np.clip(img * shade, 0.0, 1.0).astype(np.float32)
 
+
+_TEXTURE_WAVES = None
+
+
+def _texture(u, v, seed=7, n_waves=40):
+    """Procedural 2-D texture: sum of random sinusoids (dense gradients,
+    plenty of Shi-Tomasi corners)."""
+    global _TEXTURE_WAVES
+    if _TEXTURE_WAVES is None or _TEXTURE_WAVES[0] != (seed, n_waves):
+        rng = np.random.default_rng(seed)
+        freq = rng.uniform(0.5, 6.0, size=(n_waves, 2)) * rng.choice([-1, 1], size=(n_waves, 2))
+        phase = rng.uniform(0, 2 * np.pi, size=n_waves)
+        amp = rng.uniform(0.3, 1.0, size=n_waves) / np.sqrt(n_waves)
+        _TEXTURE_WAVES = ((seed, n_waves), freq, phase, amp)
+    _, freq, phase, amp = _TEXTURE_WAVES
+    acc = np.zeros_like(u)
+    for k in range(len(amp)):
+        acc = acc + amp[k] * np.sin(freq[k, 0] * u + freq[k, 1] * v + phase[k])
+    return 0.5 + 0.5 * acc / np.max(np.abs(acc) + 1e-9)
+
+
+def render_frame_textured(scene: SyntheticScene, frame_index, K, image_size,
+                          q_bc=None, p_bc=None, wall_z=None):
+    """Render a frame of a *textured wall* at z = wall_z (defaults to the
+    scene's plane if present, else behind the landmark slab): every pixel
+    ray is cast onto the wall and sampled from a procedural texture —
+    geometrically exact dense imagery that the KLT frontend can track
+    without the center-drift artifacts of sparse gaussian blobs."""
+    W, H = image_size
+    if wall_z is None:
+        wall_z = float(scene.plane_distances[0]) if len(scene.plane_distances) else 5.0
+    if q_bc is None:
+        q_bc = np.array([1.0, 0, 0, 0])
+    if p_bc is None:
+        p_bc = np.zeros(3)
+    q = scene.q_wb[frame_index]
+    p = scene.p_wb[frame_index]
+    q_wc = _np_quat_mul(q, q_bc)
+    p_wc = p + _np_quat_rotate(q, p_bc)
+    R_wc = _np_quat_to_mat(q_wc)
+
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    xs = (np.arange(W) - cx) / fx
+    ys = (np.arange(H) - cy) / fy
+    X, Y = np.meshgrid(xs, ys)
+    dirs = np.stack([X, Y, np.ones_like(X)], axis=-1) @ R_wc.T  # world rays
+    dz = dirs[..., 2]
+    dz = np.where(np.abs(dz) < 1e-9, 1e-9, dz)
+    s = (wall_z - p_wc[2]) / dz
+    hit_x = p_wc[0] + s * dirs[..., 0]
+    hit_y = p_wc[1] + s * dirs[..., 1]
+    img = _texture(hit_x, hit_y)
+    img = np.where(s > 0.1, img, 0.0)
+    return np.clip(img, 0.0, 1.0).astype(np.float32)
 
 
 def render_frame(scene: SyntheticScene, frame_index, K, image_size,
@@ -681,3 +743,87 @@ def flag_plane_tracks(w, scene, info, plane_index=0, slot=0):
     pmask[slot] = True
     return w._replace(track_flags=flags, plane_id=pid, plane_normal=normal,
                       plane_distance=dist, plane_mask=pmask), int(onp.sum())
+
+
+def write_asl_dataset(scene: SyntheticScene, outdir, K, image_size,
+                      q_bc=None, p_bc=None, distortion=None,
+                      distortion_model=None, progress=False):
+    """Serialize a synthetic scene to an on-disk ASL/EuRoC directory:
+
+        <outdir>/mav0/cam0/data.csv + data/<ns>.png   (DISTORTED renders —
+                                                       what the sensor records;
+                                                       the reader undistorts)
+        <outdir>/mav0/imu0/data.csv
+        <outdir>/mav0/state_groundtruth_estimate0/data.csv
+
+    This closes the loop the reference validates through real datasets
+    (euroc_dataset_reader.cpp:21-104 parses exactly these files): the
+    written directory is consumed by ``euroc://<outdir>`` through the
+    native C++ loader, exercising CSV parsing, PNG decode, undistortion,
+    and the full engine + output writer from disk. Timestamps are
+    nanosecond integers as in ASL.
+    """
+    import sys as _sys
+
+    from PIL import Image
+
+    outdir = Path(outdir)
+    cam = outdir / "mav0" / "cam0"
+    imu = outdir / "mav0" / "imu0"
+    gt = outdir / "mav0" / "state_groundtruth_estimate0"
+    (cam / "data").mkdir(parents=True, exist_ok=True)
+    imu.mkdir(parents=True, exist_ok=True)
+    gt.mkdir(parents=True, exist_ok=True)
+
+    with open(imu / "data.csv", "w") as f:
+        f.write("#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],"
+                "w_RS_S_z [rad s^-1],a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],"
+                "a_RS_S_z [m s^-2]\n")
+        for i, t in enumerate(scene.imu_t):
+            w, a = scene.gyro[i], scene.accel[i]
+            row = [w[0], w[1], w[2], a[0], a[1], a[2]]
+            f.write(f"{int(round(t * 1e9))},"
+                    + ",".join(repr(float(x)) for x in row) + "\n")
+
+    with open(gt / "data.csv", "w") as f:
+        f.write("#timestamp [ns],p_RS_R_x [m],p_RS_R_y [m],p_RS_R_z [m],"
+                "q_RS_w [],q_RS_x [],q_RS_y [],q_RS_z [],"
+                "v_RS_R_x [m s^-1],v_RS_R_y [m s^-1],v_RS_R_z [m s^-1]\n")
+        for i, t in enumerate(scene.frame_t):
+            p, q, v = scene.p_wb[i], scene.q_wb[i], scene.v_wb[i]
+            row = [p[0], p[1], p[2], q[0], q[1], q[2], q[3], v[0], v[1], v[2]]
+            f.write(f"{int(round(t * 1e9))},"
+                    + ",".join(repr(float(x)) for x in row) + "\n")
+
+    with open(cam / "data.csv", "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        for i, t in enumerate(scene.frame_t):
+            ns = int(round(t * 1e9))
+            name = f"{ns}.png"
+            img = render_frame_room(
+                scene, i, K, image_size, q_bc=q_bc, p_bc=p_bc,
+                distortion=distortion, distortion_model=distortion_model)
+            u8 = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            Image.fromarray(u8, mode="L").save(cam / "data" / name)
+            f.write(f"{ns},{name}\n")
+            if progress and (i + 1) % 20 == 0:
+                print(f"  wrote frame {i + 1}/{len(scene.frame_t)}",
+                      file=_sys.stderr)
+    return outdir
+
+
+def load_asl_groundtruth(outdir):
+    """Read back the ground-truth CSV written by write_asl_dataset:
+    (t (N,) s, p (N, 3), q (N, 4) wxyz)."""
+    import csv as _csv
+
+    path = Path(outdir) / "mav0" / "state_groundtruth_estimate0" / "data.csv"
+    ts, ps, qs = [], [], []
+    with open(path) as f:
+        for row in _csv.reader(f):
+            if not row or row[0].startswith("#"):
+                continue
+            ts.append(int(row[0]) * 1e-9)
+            ps.append([float(v) for v in row[1:4]])
+            qs.append([float(v) for v in row[4:8]])
+    return np.asarray(ts), np.asarray(ps), np.asarray(qs)

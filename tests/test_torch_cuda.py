@@ -338,3 +338,165 @@ def test_facade_on_card_float64_matches_cpu():
           f"first decision flip {'none' if flip is None else f'after frame {flip[0]}: {flip[1]}'}, "
           f"max |dp| {dp:.3e} m")
     assert flip is None and dp <= MAX_FACADE_F64_DP_M, (flip, dp)
+
+
+# ---------------------------------------------------------------------------
+# the facade with planes on: the plane scene of tests/test_planes.py as blob
+# frames, its plane_config and the initializer settings of
+# test_pipeline_with_planes (tests/test_torch_facade_planes.py's stream)
+
+PLANES = dict(SMALL, track_capacity=128, plane_capacity=4, enable_plane_constraint=True,
+              plane_ransac_threshold=0.07, plane_min_inliers=25, plane_min_track_life=4,
+              feature_tracker_max_keypoint_detection=120, feature_tracker_detect_min_free=0,
+              initializer_max_scale=1.0, fused_keyframe=True)
+# float64: frames after PLANES_F64_FRAMES are left out of the witness. Past
+# them the runs reach plane adoptions whose gates sit on their edges (one is
+# extend_planes' sector-area gate, is_near_boundary): two CPU runs that
+# differ only in the BA's preintegration bank, ~1e-10 m apart, take one
+# differently after frame 48-52, and so do the card and the CPU.
+PLANES_F64_FRAMES = 48
+# measured on an H100 (700 W): no decision differs in those frames, and
+# positions agree to 1.6e-8 m (planes off, test_facade_on_card_float64_
+# matches_cpu: 6.2e-9 m); the bound is that test's
+MAX_PLANES_F64_DP_M = MAX_FACADE_F64_DP_M
+# float32 with planes on: rounding alone moves positions by millimetres
+# before any decision differs. Measured on an H100 (700 W): two CPU runs
+# that differ only in the preintegration bank part by 3.5e-3 m before their
+# first flip (an adoption after frame 32), the card and the CPU by 5.1e-3 m
+# before the same flip and 4.0e-2 m after it.
+# The bound before the flip is therefore chip_smoke's float32 facade bound,
+# not MAX_FACADE_INIT_DP_M; the test prints the CPU's own bank gap beside it.
+MAX_PLANES_F32_INIT_DP_M = 1e-2
+
+
+def _plane_stream():
+    import chip_smoke as cs
+    from pvio_torch.io import synthetic
+
+    cfg = cs.facade_config(**PLANES)
+    scene = synthetic.make_scene(duration=3.0, fps=20.0, imu_rate=200.0, n_points=60,
+                                 n_plane_points=130, plane_z=4.6, seed=648)
+    images = [synthetic.render_frame(scene, fi, cfg.K, cfg.image_size)
+              for fi in range(len(scene.frame_t))]
+    torch.set_num_threads(max(1, os.cpu_count() or 1))
+    return scene, images
+
+
+def _plane_summary(rec):
+    pl = rec["planes"]
+    return (f"{pl['detected']} planes detected, plane tracks max {max(pl['tracks'])}, "
+            f"promoted at keyframe steps {[k for k, _ in pl['promote_pending']]}")
+
+
+@pytest.mark.cuda
+def test_facade_planes_on_card_float64_matches_cpu():
+    """Planes on, float64, the first PLANES_F64_FRAMES frames: on the card
+    the sequential fused loop and the pipelined loop at depth 2 with chained
+    keyframes agree bit for bit under deterministic algorithms; against the
+    CPU's sequential loop no host decision differs (plane slots, plane ids
+    and the tracks' planes included) and positions agree within
+    MAX_PLANES_F64_DP_M. The CPU run takes the card's preintegration bank
+    (struct-of-arrays), so that both sides do the same arithmetic."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+
+    scene, images = _plane_stream()
+    f64, n = dict(PLANES, dtype="float64"), PLANES_F64_FRAMES
+    torch.use_deterministic_algorithms(True)
+    try:
+        card = cs.run_facade(cs.facade_config(**f64), scene, images, n_frames=n)
+        pipe = cs.run_facade(cs.facade_config(**f64, pipelined_host=True, pipeline_depth=2,
+                                              chained_keyframe=True), scene, images, n_frames=n)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the CPU over the whole stream on both banks: the first n frames are
+    # compared with the card, the whole stream shows the gate's edge after it
+    cpu = cs.run_facade(cs.facade_config(**f64), scene, images, device="cpu", fused_preint=True)
+    cpu_vm = cs.run_facade(cs.facade_config(**f64), scene, images, device="cpu",
+                           fused_preint=False)
+    assert pipe["depth"] == 2 and card["launches"] == pipe["launches"] == card["n_frames"]
+    assert len(card["traj"]) == len(pipe["traj"])
+    for (t1, q1, p1), (t2, q2, p2) in zip(card["traj"], pipe["traj"]):
+        assert t1 == t2 and np.array_equal(q1, q2) and np.array_equal(p1, p2), t1
+    for rec in (card, pipe, cpu):
+        assert rec["initialized"] and rec["n_reinits"] == 0
+        assert rec["planes"]["detected"] >= 1 and max(rec["planes"]["tracks"]) >= 10
+    assert len(card["traj"]) == len([t for t, _, _ in cpu["traj"] if t < scene.frame_t[n]])
+    flip, _, dp = cs.facade_gap(card, cpu, scene)
+    dps = [float(np.abs(a - b).max()) for (_, _, a), (_, _, b) in zip(card["traj"], cpu["traj"])]
+    bank_flip, bank_dp_agreed, _ = cs.facade_gap(cpu_vm, cpu, scene)
+    print(f"planes-on facade card vs CPU, float64: init frame {card['init_fi']}, "
+          f"{card['keyframes']} keyframes, {len(card['traj'])} poses, card sequential == "
+          f"pipelined depth 2 + chained; card {_plane_summary(card)}; CPU {_plane_summary(cpu)}; "
+          f"first decision flip {'none' if flip is None else f'after frame {flip[0]}: {flip[1]}'}, "
+          f"max |dp| {dp:.3e} m over the first {n} frames (per pose "
+          f"{[float(f'{x:.2e}') for x in dps]}); the CPU's two preintegration banks "
+          f"over all {len(scene.frame_t)} frames: first flip "
+          f"{'none' if bank_flip is None else f'after frame {bank_flip[0]}: {bank_flip[1]}'}, "
+          f"max |dp| before it {bank_dp_agreed:.3e} m")
+    assert flip is None and dp <= MAX_PLANES_F64_DP_M, (flip, dp)
+
+
+@pytest.mark.cuda
+def test_facade_planes_on_card_matches_cpu():
+    """Planes on, float32, card against CPU (sequential fused loops, the
+    CPU on the card's preintegration bank, as in the float64 witness): the
+    same initialization frame; positions within MAX_PLANES_F32_INIT_DP_M
+    until the first call after which a host decision differs (named in the
+    output), within MAX_FACADE_DP_M after it, and ATEs within
+    MAX_FACADE_DATE_M; both detect a plane. Beside it, the gap between the
+    CPU's two preintegration banks, the float32 rounding the bound stands
+    for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+
+    scene, images = _plane_stream()
+    f32 = dict(PLANES, dtype="float32")
+    card = cs.run_facade(cs.facade_config(**f32), scene, images)
+    cpu = cs.run_facade(cs.facade_config(**f32), scene, images, device="cpu", fused_preint=True)
+    cpu_vm = cs.run_facade(cs.facade_config(**f32), scene, images, device="cpu",
+                           fused_preint=False)
+    assert card["launches"] == card["n_frames"]
+    for rec in (card, cpu):
+        assert rec["initialized"] and rec["n_reinits"] == 0 and rec["planes"]["detected"] >= 1
+    assert card["init_fi"] == cpu["init_fi"]
+    flip, dp_agreed, dp = cs.facade_gap(card, cpu, scene)
+    bank_flip, bank_dp_agreed, bank_dp = cs.facade_gap(cpu_vm, cpu, scene)
+    ate_card, ate_cpu = cs.facade_ate(card["traj"], scene), cs.facade_ate(cpu["traj"], scene)
+    print(f"planes-on facade card vs CPU, float32: init frame {card['init_fi']}, "
+          f"{card['keyframes']} vs {cpu['keyframes']} keyframes; card {_plane_summary(card)}; "
+          f"CPU {_plane_summary(cpu)}; first decision flip "
+          f"{'none' if flip is None else f'after frame {flip[0]}: {flip[1]}'}, max |dp| before it "
+          f"{dp_agreed:.3e} m, over all {dp:.3e} m, ATE card {ate_card:.6f} m, CPU {ate_cpu:.6f} m; "
+          f"the CPU's two preintegration banks: first flip "
+          f"{'none' if bank_flip is None else f'after frame {bank_flip[0]}: {bank_flip[1]}'}, "
+          f"max |dp| before it {bank_dp_agreed:.3e} m, over all {bank_dp:.3e} m")
+    assert dp_agreed <= MAX_PLANES_F32_INIT_DP_M, dp_agreed
+    assert dp <= (MAX_PLANES_F32_INIT_DP_M if flip is None else MAX_FACADE_DP_M), (flip, dp)
+    assert abs(ate_card - ate_cpu) <= MAX_FACADE_DATE_M
+
+
+@pytest.mark.cuda
+def test_fetch_packs_plane_detection_on_card():
+    """The asynchronous plane detection's outputs (a bool inlier mask and a
+    0-d int64 count) ride one packed transfer.Fetch with float tensors and
+    come back with their dtypes and values, as find_plane returns them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pvio_torch.frontend import ransac
+    from pvio_torch.utils import threefry, transfer
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    pts = (torch.randn(256, 3, generator=g) * torch.tensor([2.0, 1.5, 0.01]) + 4.0).double()
+    mask = torch.rand(256, generator=g) < 0.9
+    key = torch.as_tensor(threefry.split(threefry.PRNGKey(649))[1].astype(np.int64))
+    inl, cnt = ransac.find_plane(key.cuda(), pts.cuda(), mask.cuda())[2:]
+    inl_cpu, cnt_cpu = ransac.find_plane(key, pts, mask)[2:]
+    w = torch.randn(9, 3, device="cuda")
+    (w_h, (inl_h, cnt_h)) = transfer.Fetch((w, (inl, cnt))).result()
+    assert inl_h.dtype == np.bool_ and cnt_h.dtype == np.int64 and cnt_h.shape == ()
+    np.testing.assert_array_equal(w_h, w.cpu().numpy())
+    np.testing.assert_array_equal(inl_h, inl_cpu.numpy())
+    assert int(cnt_h) == int(cnt_cpu) > 100

@@ -10,7 +10,8 @@ pieces of the sensor core.
   reference's trackers);
 * `Core._pair_imu`, `_next_ready_frame`, `_propagate` and `swt.health_update`
   against the reference on the same streams, exactly;
-* `PVIO` raises without CUDA unless device="cpu", and with planes on;
+* `PVIO` raises without CUDA unless device="cpu", and builds a plane
+  extractor with planes on;
 * the port's `io/synthetic.py` copies (`render_frame`, `render_frame_room`,
   `OracleFeatureSource.make_frame`, `pipeline_config`) equal the
   reference's outputs on the same scene.
@@ -175,8 +176,7 @@ def test_pvio_needs_cuda_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         PVIO(small_config())
-    with pytest.raises(NotImplementedError, match="plane"):
-        PVIO(small_config(), enable_planes=True, device="cpu")
+    assert PVIO(small_config(), enable_planes=True, device="cpu").core.frontend._pef is not None
     vio = PVIO(small_config(), device="cpu")
     assert vio.core.kernels.device.type == "cpu" and not vio.initialized
     assert vio.get_latest_state() is None and vio.get_trajectory() == []
