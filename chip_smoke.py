@@ -10,7 +10,9 @@ the port's main path, bench.py's coupled chain, at the production size
 points a user calls: `DeviceKernels.first_frame_step`, `frame_step`,
 `pnp_step`, `ba_step`, `marg_step`, `kf_step` and `kf_step_chained`; then
 the `PVIO` facade, planes off and with `Config()`'s planes on, and the CLI
-(`python -m pvio_torch.run`).
+(`python -m pvio_torch.run`); then many sequences on the card: the vmapped
+multi-sequence chain (`parallel.multi_seq`) and N engines behind one host
+loop (`parallel.serving`).
 
 Phases; each raises on failure, so any failure exits non-zero:
   1. device and build: the card's name and power limit, the kernels built
@@ -22,7 +24,14 @@ Phases; each raises on failure, so any failure exits non-zero:
      stage it took (TMA or per-thread loads), which must match the
      launcher's plan, and both stages must occur. Then the detections it
      feeds, and its time beside the plain version's, the card's bound and
-     a launch floor (the device time of a 1-element zero_());
+     a launch floor (the device time of a 1-element zero_()). Then K1's
+     batched form on MS_B bench frames in one launch (each image equal to
+     its own launch bit for bit), kernel S1 (Poisson-disk selection) on
+     their candidates, one image and the stack, equal to the plain rounds
+     loop bit for bit at float32 and float64 with the same round counts,
+     and kernel E1 (4x4 symmetric eigen-decompositions) on the window's
+     DLT normal matrices against torch.linalg.eigh;
+     each timed beside its plain version and its bound;
   3. the main path: the bench scene, first_frame_step, the slot -> track
      association, then N_FRAMES x (frame_step -> association -> pnp_step)
      chaining the tail pose, and every KF_EVERY-th frame ba_step
@@ -30,8 +39,8 @@ Phases; each raises on failure, so any failure exits non-zero:
      resets to the base window as bench.py does (the synthetic window has
      no host topology upkeep); every solve must lower its cost, accept a
      step and leave a finite window and prior; launch counts are zeroed
-     just before and read just after, and K1 must have launched once per
-     frame;
+     just before and read just after, and K1 and S1 must have launched
+     once per frame, E1 at least once per motion step;
   4. the keyframe: one kf_step_chained (do_marg=True) fed the last
      pnp_step's device outputs, and one kf_step fed their host copies,
      under deterministic algorithms: every output identical. Then the
@@ -45,9 +54,10 @@ Phases; each raises on failure, so any failure exits non-zero:
      deterministic algorithms, FACADE_SECONDS long, each mode run
      sequentially and then pipelined with fused and chained keyframes:
      planes off at Config()'s detect-skip (Core caps the depth at 1, as the
-     reference's `run.py --fast` runs it) and on the first
-     FACADE_FAST_FRAMES frames with detection on every frame (two frames in
-     flight); then planes on (Config()'s default) at the detect-skip. Each run must initialize,
+     reference's `run.py --fast` runs it) and with detection on every
+     frame (two frames in flight), each on the first FACADE_FAST_FRAMES
+     frames; then planes on (Config()'s default) at the detect-skip over
+     the whole stream. Each run must initialize,
      never re-initialize, emit a pose for every frame after initialization
      (less the frames in flight: the pipeline depth and the SWT stage),
      launch K1 once per frame and keep its ATE under FACADE_MAX_ATE_M; the
@@ -58,8 +68,10 @@ Phases; each raises on failure, so any failure exits non-zero:
      which `promote_pending`, `extend_planes`, `merge_planes` and
      `update_parameters` changed the window, and each plane stage's median
      host ms. Every run prints the initialization frame, the keyframes, the
-     initializing call's time and the median ms per `track_camera` call by
-     state. Then the first FACADE_CPU_FRAMES frames through the port on the
+     initializing call's time, the median ms per `track_camera` call by
+     state and the S1 and E1 launches; each pair prints its sequential and
+     pipelined tracking and keyframe ms. Then the first FACADE_CPU_FRAMES
+     frames through the port on the
      CPU (planes off), at float32 against the card's sequential run and at
      float64 against a card run at float64: the same initialization frame,
      the first call after which a host decision (KLT status, track ids, the
@@ -70,8 +82,21 @@ Phases; each raises on failure, so any failure exits non-zero:
      own, `python -m pvio_torch.run synthetic --fast` (planes on): exit 0,
      one TUM line per pose it reports, finite poses and its printed ATE
      under CLI_MAX_ATE_M;
-  7. the kernel table (JSON; K1's launches are the planes-on sequential
-     run's), the total time, the nvidia-smi line and, last, the result.
+  7. the multi-sequence chain at Config()'s size, planes on: MS_B
+     sequences through one vmapped chain, K1 and S1 launched once per frame
+     (counts zeroed just before, read just after), the sequences MS_CHECK
+     unbatched against their batched results within MAX_MS_COST_REL /
+     MAX_MS_DP_M, and ms per group batched at B = 1, 4 and MS_B beside B
+     unbatched chains;
+  8. serving: two PVIO engines (planes on) behind one MultiSequenceServer
+     on the first SERVE_FRAMES frames, engine 0 the phase-6 stream held to
+     phase 6's sequential run, engine 1 the SERVE_SEED room stream held to
+     its own solo run, both bit for bit under deterministic algorithms; the
+     host waits once or twice per tick; ms per tick beside the two solo
+     calls;
+  9. the kernel table (JSON; the single-image entries' launches are the
+     planes-on sequential run's, the batched entries' the vmapped chain's),
+     the total time, the nvidia-smi line and, last, the result.
 
 Exits non-zero, printing no result, when CUDA is not available or the
 port's package is not beside this script.
@@ -94,9 +119,26 @@ KF_REPS = 3                     # timed repetitions of each keyframe step
 KEY0 = (648, 1)                 # threefry key data of the first frame_step
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+FP64_FLOPS_PER_S = 34e12        # H100 SXM float64 outside the tensor cores, data sheet
 
 # K1 against its plain version: the kernel sums in another order in float32
 K1_REL_TOL, K1_ABS_TOL = 1e-6, 1e-9
+# the multi-sequence chain (BASELINE config 4): MS_B sequences (seeds 648 +
+# 31 i) through one vmapped chain of MS_GROUPS groups of MS_KF_EVERY frames;
+# the sequences MS_CHECK also run unbatched. Batched against unbatched, both
+# on the card at float32 (the batched matmuls may round differently): the
+# final costs within MAX_MS_COST_REL and the final positions within
+# MAX_MS_DP_M. Measured on an H100 (700 W): costs 1.55e-6 relative,
+# positions 4.1e-6 m at most; the bounds keep ~100x, as the keyframe
+# bounds do.
+MS_B, MS_GROUPS, MS_KF_EVERY, MS_CHECK = 11, 2, 4, (0, 6)
+MAX_MS_COST_REL = 2e-4
+MAX_MS_DP_M = 5e-4
+# serving: two PVIO engines behind one host loop on the first SERVE_FRAMES
+# frames of the planes-on room stream (engine 0: phase 6's seed; engine 1:
+# SERVE_SEED), each held bit for bit to its solo sequential run
+SERVE_FRAMES = 60
+SERVE_SEED = 679
 # card vs CPU chain, both float32: the kernel, cuBLAS and the CPU round
 # differently, and a KLT/RANSAC/detection decision can flip on a hair.
 # Measured on an H100 (700 W): agreement 1.0, median |dkp| 7.6e-6 px,
@@ -317,7 +359,7 @@ def run_chain(kern, w, host, n_frames, kf_every=KF_EVERY):
     frame's device outputs."""
     import torch
 
-    from pvio_torch.frontend import detect
+    from pvio_torch.ops import poisson
 
     dev, dt = kern.device, kern.dtype
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -346,7 +388,10 @@ def run_chain(kern, w, host, n_frames, kf_every=KF_EVERY):
             np.array([KEY0[0], KEY0[1] + i], np.uint32))
         sync()
         t1 = time.perf_counter()
-        rec["rounds"].append(detect.LAST_ROUNDS)
+        # the selection's rounds: S1's device count on the card, read after
+        # the step, or the plain loop's
+        rec["rounds"].append(int(poisson.LAST_KERNEL_ROUNDS[0]) if dev.type == "cuda"
+                             else poisson.LAST_ROUNDS)
         alive = alive & mask[sc] & (slot_d >= 0)
         z = (kp[sc] - kinv_off) * kinv_scale
         out = kern.pnp_step(w, *imu, host["t_new"], tail, z, alive, alive, 0)
@@ -425,6 +470,43 @@ def keyframe_inputs(kern, w, host, last):
     return w, args, (out[6], out[7]), tri_mask_host, life, slot
 
 
+def eig_cases(kern, w):
+    """E1's input at the main path's shape: the DLT normal matrices A^T A
+    (T, 4, 4) of every track of the window, as `window.triangulate_tracks`
+    forms them."""
+    import torch
+
+    from pvio_torch.geometry import lie, triangulation
+    from pvio_torch.map import window as win
+
+    q_ws, p_ws = win._camera_poses(w.q, w.p, kern.extr)
+    R_sw = lie.quat_to_mat(lie.quat_conj(q_ws))
+    Ps = torch.cat([R_sw, -lie.mv(R_sw, p_ws)[..., None]], dim=-1)
+    obs = (w.obs_mask & w.frame_mask[:, None]).T
+    rows = triangulation._dlt_rows(Ps[None], w.kp.transpose(0, 1)) * obs[..., None, None]
+    A = rows.reshape(rows.shape[0], -1, 4)
+    return {"4x4": (A.transpose(-1, -2) @ A).contiguous()}
+
+
+def eig_gap(A, L_k, V_k, L_p):
+    """E1's eigenpairs against torch.linalg.eigh's eigenvalues: the largest
+    of the eigenvalue gap, the kernel's residual |A v - lambda v| and its
+    departure from orthonormality, each relative to the matrix's largest
+    |eigenvalue| (eigenvectors are compared through the residual: their
+    signs, and the basis of a repeated eigenvalue, are free). Returns (gap,
+    limit): 1e-5 at float32 (the decompositions round differently; a
+    tolerance of ~100 unit roundoffs), 1e-12 at float64."""
+    import torch
+
+    scale = L_p.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    gap_l = ((L_k - L_p).abs() / scale).max()
+    res = (A @ V_k - V_k * L_k[..., None, :]).abs().amax(dim=-2) / scale
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    orth = (V_k.transpose(-1, -2) @ V_k - eye).abs().max()
+    gap = float(max(gap_l, res.max(), orth))
+    return gap, (1e-5 if A.dtype == torch.float32 else 1e-12)
+
+
 def leaves(x):
     """Every tensor of a nested output, in a fixed order."""
     import torch
@@ -478,16 +560,16 @@ def _render_room(args):
     return (img * 255.0 + 0.5).astype(np.uint8)
 
 
-def facade_inputs(cfg, duration=FACADE_SECONDS):
-    """The scene (seed 648) and its frames rendered as a textured room at
-    the config's size, uint8, in a pool of worker processes."""
+def facade_inputs(cfg, duration=FACADE_SECONDS, seed=648):
+    """The scene and its frames rendered as a textured room at the config's
+    size, uint8, in a pool of worker processes."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     from pvio_torch.io import synthetic
 
     scene = synthetic.make_scene(duration=duration, fps=20.0, imu_rate=200.0, n_points=8,
-                                 seed=648)
+                                 seed=seed)
     jobs = [(scene, fi, cfg.K, cfg.image_size, np.asarray(cfg.q_bc), np.asarray(cfg.p_bc))
             for fi in range(len(scene.frame_t))]
     workers = max(1, min(len(jobs), os.cpu_count() or 1))
@@ -574,7 +656,8 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
     keyframe step ran in the call)."""
     from pvio_torch import PVIO
     from pvio_torch.map.window import TF_PLANE
-    from pvio_torch.ops import stencil
+    from pvio_torch.ops import eigh as eigh_op
+    from pvio_torch.ops import poisson, stencil
 
     vio = PVIO(cfg, device=device)
     kern = vio.core.kernels
@@ -605,7 +688,7 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
             return pe
         fw._pef = factory
     last = len(scene.frame_t) if n_frames is None else n_frames
-    stencil.LAUNCHES = 0
+    stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
     calls, decided, init_fi, init_state, fi = [], [], None, None, 0
     for k in range(len(scene.imu_t)):
         t = scene.imu_t[k]
@@ -630,7 +713,7 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
         import torch
 
         torch.cuda.synchronize()
-    launches = stencil.LAUNCHES
+    launches, s1_launches, e1_launches = stencil.LAUNCHES, poisson.LAUNCHES, eigh_op.LAUNCHES
     n_before_drain = len(vio.core.outputs)
     traj = vio.get_trajectory()
     swt = vio.core.frontend.swt
@@ -641,7 +724,8 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
     return dict(traj=traj, init_fi=init_fi, init_state=init_state, planes=planes,
                 n_reinits=vio.core.frontend.n_reinits,
                 initialized=vio.initialized, keyframes=swt.n_keyframes if swt else 0,
-                kf_steps=kf_calls[0], launches=launches, n_frames=fi,
+                kf_steps=kf_calls[0], launches=launches, s1_launches=s1_launches,
+                e1_launches=e1_launches, n_frames=fi,
                 n_before_drain=n_before_drain, calls=calls, decisions=decided,
                 hub=vio.core.hub is not None,
                 depth=vio.core._pipeline_depth if vio.core._pipelined else 0)
@@ -767,6 +851,192 @@ def state_ms(calls):
 
 
 # ---------------------------------------------------------------------------
+# many sequences on one card: the vmapped chain and the served fleet
+
+
+def multi_seq_phase(cfg):
+    """`parallel.multi_seq` at the config's size: MS_B sequences through
+    one vmapped chain with K1's and S1's counts zeroed just before and read
+    just after (each must have launched once per frame, not per sequence),
+    the sequences MS_CHECK unbatched against their batched results, and the
+    batched chain's time per group at B = 1, 4 and MS_B beside B unbatched
+    chains' (B times the mean unbatched chain measured here). Raises on any
+    failed check; returns the phase's record."""
+    import torch
+
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.ops import poisson, stencil
+    from pvio_torch.parallel import multi_seq
+
+    kern = DeviceKernels(cfg)
+    n_frames = MS_GROUPS * MS_KF_EVERY
+    t0 = time.perf_counter()
+    inputs = [multi_seq.build_sequence_inputs(cfg, kern, n_frames, seed=648 + 31 * i)
+              for i in range(MS_B)]
+    ws, arrays = [w for w, _ in inputs], [a for _, a in inputs]
+    build_s = time.perf_counter() - t0
+
+    def batched(B):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = multi_seq.run_batched(kern, cfg, ws[:B], arrays[:B], MS_GROUPS, MS_KF_EVERY)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    stencil.LAUNCHES = poisson.LAUNCHES = 0
+    (costs_b, wfs), ms_full = batched(MS_B)
+    launches = {"shi_tomasi_batched": stencil.LAUNCHES, "poisson_select_batched": poisson.LAUNCHES}
+    if set(launches.values()) != {n_frames + 1}:
+        raise RuntimeError(f"the vmapped chain of {n_frames + 1} frames launched {launches} "
+                           "(want one launch of each kernel per frame)")
+    if not (np.isfinite(costs_b).all() and len({round(float(c[-1]), 3) for c in costs_b}) == MS_B):
+        raise RuntimeError(f"the vmapped chain's final costs are not finite and distinct: {costs_b}")
+
+    chain = multi_seq.make_chain(kern, cfg, MS_GROUPS, MS_KF_EVERY)
+    gaps, single_ms = [], []
+    for i in MS_CHECK:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        costs, wf = chain(ws[i], multi_seq.upload_arrays(kern, arrays[i]),
+                          torch.zeros((), dtype=kern.dtype, device=kern.device))
+        costs = costs.cpu().numpy()
+        single_ms.append(1e3 * (time.perf_counter() - t0))
+        rel = float(np.max(np.abs(costs_b[i] - costs) / np.abs(costs)))
+        dp = float((wfs[i].p - wf.p).abs().max())
+        gaps.append((i, rel, dp))
+    ms = {MS_B: ms_full}
+    for B in (1, 4):
+        ms[B] = batched(B)[1]
+    rec = dict(build_s=build_s, launches=launches, costs=costs_b, gaps=gaps, ms=ms,
+               single_ms=statistics.mean(single_ms), frames=n_frames + 1)
+    if not all(rel <= MAX_MS_COST_REL and dp <= MAX_MS_DP_M for _, rel, dp in gaps):
+        raise RuntimeError(f"the vmapped chain and its unbatched runs disagree beyond the stated "
+                           f"bounds: {gaps}")
+    return rec
+
+
+def instrument_ticks(srv):
+    """Wrap `srv._tick` to log each tick's host ms and its kind: "init"
+    when an engine of the tick was initializing before or after it,
+    "keyframe" when an engine ran a keyframe solve in it (a `track_finish`
+    whose window tail is a keyframe), else "steady". Returns (tick_ms,
+    kinds, restore); `restore()` undoes the keyframe count's wrapper."""
+    from pvio_torch.core import swt as swt_mod
+
+    tick, finish = srv._tick, swt_mod.SlidingWindowTracker.track_finish
+    tick_ms, kinds, solves = [], [], [0]
+
+    def counted_finish(self, pend, fetched=None):
+        solves[0] += bool(self.hw.keyframe[self.hw.n_frames - 1])
+        return finish(self, pend, fetched)
+
+    def timed_tick(batch):
+        fws = [srv.vios[i].core.frontend for i, _ in batch]
+        init0, solves0 = sum(not fw.initialized for fw in fws), solves[0]
+        t0 = time.perf_counter()
+        tick(batch)
+        tick_ms.append((len(batch), 1e3 * (time.perf_counter() - t0)))
+        init = init0 + sum(not fw.initialized for fw in fws)
+        kinds.append("init" if init else "keyframe" if solves[0] > solves0 else "steady")
+
+    def restore():
+        swt_mod.SlidingWindowTracker.track_finish = finish
+
+    srv._tick = timed_tick
+    swt_mod.SlidingWindowTracker.track_finish = counted_finish
+    return tick_ms, kinds, restore
+
+
+def check_waits(ticks, kinds):
+    """The served fleet's host waits (`MultiSequenceServer.ticks`, counted
+    by `transfer.WAITS`): each fleet harvest is one wait, and a steady
+    tick (no engine initializing, no keyframe solve) makes no other, so it
+    waits exactly twice when an engine tracks in it. Returns the waits per
+    tick of each kind as {kind: {waits: ticks}}; raises otherwise."""
+    steady = [(h, w) for (_, h, w), k in zip(ticks, kinds) if k == "steady"]
+    if not (all(w >= h for _, h, w in ticks) and steady
+            and all(w == h for h, w in steady) and any(w == 2 for _, w in steady)):
+        raise RuntimeError(f"the host did not wait once per fleet harvest, twice per steady "
+                           f"tick: {list(zip(kinds, ticks))}")
+    hist = {}
+    for (_, _, w), k in zip(ticks, kinds):
+        hist.setdefault(k, {}).setdefault(w, 0)
+        hist[k][w] += 1
+    return {k: dict(sorted(v.items())) for k, v in sorted(hist.items())}
+
+
+def serving_phase(scene0, images0, solo0, cfg_kw):
+    """`parallel.serving.MultiSequenceServer` with two engines on the
+    first SERVE_FRAMES frames: engine 0 the planes-on stream of phase 6
+    (held to phase 6's sequential run `solo0`), engine 1 the room stream of
+    SERVE_SEED (held to its own solo run here), both bit for bit, under
+    deterministic algorithms. Returns the phase's record: the served and
+    solo host ms, the harvests of each tick and its host waits by kind."""
+    import torch
+
+    from pvio_torch.parallel.serving import MultiSequenceServer
+
+    scene1, images1 = facade_inputs(facade_config(**cfg_kw), duration=(SERVE_FRAMES + 1) / 20.0,
+                                    seed=SERVE_SEED)
+    scenes, images = (scene0, scene1), (images0, images1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        solo1 = run_facade(facade_config(**cfg_kw), scene1, images1, n_frames=SERVE_FRAMES)
+        solo1_s = time.perf_counter() - t0
+        srv = MultiSequenceServer([facade_config(**cfg_kw) for _ in range(2)], auto_pump=False)
+        tick_ms, kinds, restore = instrument_ticks(srv)
+        fis = [0, 0]
+        t0 = time.perf_counter()
+        try:
+            for k in range(len(scene0.imu_t)):
+                for i, scene in enumerate(scenes):
+                    if k >= len(scene.imu_t):
+                        continue
+                    t = scene.imu_t[k]
+                    srv.track_gyroscope(i, t, *scene.gyro[k])
+                    srv.track_accelerometer(i, t, *scene.accel[k])
+                    while fis[i] < SERVE_FRAMES and scene.frame_t[fis[i]] <= t:
+                        srv.track_camera(i, scene.frame_t[fis[i]], images[i][fis[i]])
+                        fis[i] += 1
+                srv.pump()
+            srv.pump()
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if fis != [SERVE_FRAMES, SERVE_FRAMES]:
+        raise RuntimeError(f"serving fed {fis} frames, want {SERVE_FRAMES} each")
+    t_last = scene0.frame_t[SERVE_FRAMES - 1]
+    want0 = [p for p in solo0["traj"] if p[0] <= t_last]
+    for i, want in ((0, want0), (1, solo1["traj"])):
+        got = srv.get_trajectory(i)
+        same = len(got) == len(want) > 0 and all(
+            t1 == t2 and np.array_equal(q1, q2) and np.array_equal(p1, p2)
+            for (t1, q1, p1), (t2, q2, p2) in zip(got, want))
+        if not same:
+            raise RuntimeError(f"served engine {i} differs from its solo run ({len(got)} vs "
+                               f"{len(want)} poses)")
+    harvests = [h for _, h, _ in srv.ticks]
+    tracked = max(len(srv.get_trajectory(i)) for i in range(2))
+    if not (set(harvests) <= {1, 2} and sum(h == 2 for h in harvests) >= tracked - 1):
+        raise RuntimeError(f"the fleet was not harvested once or twice per tick: {srv.ticks}")
+    waits = check_waits(srv.ticks, kinds)
+    both = [ms for n, ms in tick_ms if n == 2]
+    solo_calls = [a[1] + b[1] for a, b in zip(solo0["calls"][:SERVE_FRAMES], solo1["calls"])]
+    return dict(poses=[len(srv.get_trajectory(i)) for i in range(2)], ticks=len(srv.ticks),
+                two=sum(h == 2 for h in harvests), waits=waits, tick_ms=statistics.median(both),
+                solo_ms=statistics.median(solo_calls), serve_s=serve_s,
+                solo_s=sum(m for _, m in solo0["calls"][:SERVE_FRAMES]) / 1e3
+                + sum(m for _, m in solo1["calls"]) / 1e3, solo1_s=solo1_s,
+                keyframes=[srv.vios[i].core.frontend.swt.n_keyframes
+                           if srv.vios[i].core.frontend.swt else 0 for i in range(2)],
+                reinits=[v.core.frontend.n_reinits for v in srv.vios])
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -786,10 +1056,13 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
 
+    from torch.func import vmap
+
     from pvio_torch.core.kernels import DeviceKernels
     from pvio_torch.frontend import detect
     from pvio_torch.io.config import Config
-    from pvio_torch.ops import stencil
+    from pvio_torch.ops import eigh as eigh_op
+    from pvio_torch.ops import poisson, stencil
     from pvio_torch.utils import cuda_build
 
     t_start = time.perf_counter()
@@ -802,6 +1075,8 @@ def main():
     t0 = time.perf_counter()
     built = cuda_build.build_all()
     stencil.build()
+    poisson.build()
+    eigh_op.build()
     log(f"[1] built {len(built)} kernel source(s) in {time.perf_counter() - t0:.3f} s")
     for src, (_, out) in built.items():
         for line in out.splitlines():
@@ -879,18 +1154,116 @@ def main():
     log(f"[2] launch floor: device {floor_ms:.6f} ms for a 1-element zero_() on the card, per "
         f"call {floor_call_ms:.6f} ms (an empty event pair reads {events_ms:.6f} ms); K1 device "
         f"{k1_ms:.6f} ms, per call {k1_call_ms:.6f} ms, bound {bound_ms:.6f} ms")
+
+    # K1's batched form: the level-0 images of MS_B bench frames, one launch
+    # (a 3-D tensor map: each image's halo past its edge reads zeros)
+    stack = torch.stack([kern.preprocess(host["images"][i])[0] for i in range(MS_B)]).contiguous()
+    before = stencil.LAUNCHES
+    resp_b = stencil.shi_tomasi_response(stack)
+    torch.cuda.synchronize()
+    if stencil.LAUNCHES != before + 1:
+        raise RuntimeError("K1 did not launch once for the stack")
+    k1b_err = 0.0
+    for b in range(MS_B):
+        if not torch.equal(resp_b[b], stencil.shi_tomasi_response(stack[b].contiguous())):
+            raise RuntimeError(f"batched K1 differs from its single launch on image {b}")
+        ref = detect.shi_tomasi_response(stack[b])
+        err = float((resp_b[b] - ref).abs().max())
+        if not err <= K1_REL_TOL * float(ref.abs().max()) + K1_ABS_TOL:
+            raise RuntimeError(f"batched K1 disagrees with its plain version on image {b}: {err}")
+        k1b_err = max(k1b_err, err)
+    k1b_ms = device_ms(lambda: stencil.shi_tomasi_response(stack))
+    k1b_plain_ms = device_ms(lambda: vmap(detect.shi_tomasi_response)(stack))
+    k1b_call_ms = cuda_ms(lambda: stencil.shi_tomasi_response(stack))
+    nbytes, nflops = stencil.cost(H, W, MS_B)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nflops / FP32_FLOPS_PER_S * 1e3
+    k1b_bound, k1b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    log(f"[2] K1 batched, {MS_B} x {H}x{W} in one launch: each image == its single launch bit for "
+        f"bit, max|kernel - plain| {k1b_err:.3e}; device {k1b_ms:.6f} ms/launch (per call "
+        f"{k1b_call_ms:.6f} ms), {MS_B} single launches {MS_B * k1_ms:.6f} ms; plain version "
+        f"(vmapped) device {k1b_plain_ms:.6f} ms; bound {k1b_bound:.6f} ms ({k1b_by}: {nbytes} "
+        f"B, {nflops} flop), {100 * k1b_bound / k1b_ms:.1f}% reached")
+
+    # S1: the selection of the same frames' candidates, one image and the stack
+    md = cfg.feature_tracker_min_keypoint_distance
+    cands = [detect.candidates(stack[b], md, border=20, response=resp_b[b]) for b in range(MS_B)]
+    cand_b = torch.stack([c for c, _ in cands]).contiguous()
+    alive_b = torch.stack([a for _, a in cands]).contiguous()
+    C = cand_b.shape[1]
+    before = poisson.LAUNCHES
+    sel1 = poisson.select_candidates(cand_b[0], alive_b[0], md)
+    rounds1 = int(poisson.LAST_KERNEL_ROUNDS[0])
+    plain1 = poisson.select_candidates_plain(cand_b[0], alive_b[0], md)
+    sel_b = poisson.select_candidates(cand_b, alive_b, md)
+    rounds_b = poisson.LAST_KERNEL_ROUNDS.tolist()
+    if poisson.LAUNCHES != before + 2 or not torch.equal(sel1, plain1) \
+            or rounds1 != poisson.LAST_ROUNDS:
+        raise RuntimeError(f"S1 differs from its plain version on the bench frame (rounds "
+                           f"{rounds1} vs {poisson.LAST_ROUNDS})")
+    s1_diff = 0
+    for b in range(MS_B):
+        plain = poisson.select_candidates_plain(cand_b[b], alive_b[b], md)
+        s1_diff += int((sel_b[b] != plain).sum()) + int(rounds_b[b] != poisson.LAST_ROUNDS)
+        sel64 = poisson.select_candidates(cand_b[b].double(), alive_b[b], md)
+        s1_diff += int((sel64 != poisson.select_candidates_plain(cand_b[b].double(), alive_b[b],
+                                                                 md)).sum())
+    if s1_diff:
+        raise RuntimeError(f"S1 differs from its plain version in {s1_diff} entries")
+    s1_ms = device_ms(lambda: poisson.select_candidates(cand_b[0], alive_b[0], md))
+    s1b_ms = device_ms(lambda: poisson.select_candidates(cand_b, alive_b, md))
+    s1_plain_ms = device_ms(lambda: poisson.select_candidates_plain(cand_b[0], alive_b[0], md),
+                            reps=20)
+    s1b_plain_ms = device_ms(lambda: [poisson.select_candidates_plain(c, a, md)
+                                      for c, a in zip(cand_b, alive_b)], reps=5)
+    n_alive = [int(n) for n in alive_b.sum(dim=1).tolist()]
+    s1_bounds = {}
+    for key, alive_n in (("one", n_alive[:1]), ("stack", n_alive)):
+        nb, nops = poisson.cost(alive_n, C)
+        tb, to = nb / HBM_BYTES_PER_S * 1e3, nops / FP32_FLOPS_PER_S * 1e3
+        s1_bounds[key] = (tb, "bytes") if tb >= to else (to, "operations")
+    log(f"[2] S1 on the bench frames' {C} candidates ({n_alive} alive, min_distance {md}): == the "
+        f"plain rounds loop bit for bit at float32 and float64, rounds {rounds_b}; one image: "
+        f"device {s1_ms:.6f} ms/launch, plain version {s1_plain_ms:.6f} ms device (+ a host "
+        f"read per round), bound {s1_bounds['one'][0]:.6f} ms ({s1_bounds['one'][1]}); "
+        f"{MS_B} images in one launch: device {s1b_ms:.6f} ms, plain {s1b_plain_ms:.6f} ms, "
+        f"bound {s1_bounds['stack'][0]:.6f} ms ({s1_bounds['stack'][1]})")
+    # E1: the eigen-decompositions of the triangulation (one 4x4 normal
+    # matrix per track of the bench window)
+    e1_cases = eig_cases(kern, to_device(w, dev))
+    e1 = {}
+    for key, A in e1_cases.items():
+        before = eigh_op.LAUNCHES
+        L_k, V_k = eigh_op.eigh(A)
+        sweeps = eigh_op.LAST_SWEEPS.tolist()
+        if eigh_op.LAUNCHES != before + 1:
+            raise RuntimeError(f"E1 did not launch once for {key}")
+        L_p, _ = torch.linalg.eigh(A)
+        err, lim = eig_gap(A, L_k, V_k, L_p)
+        if not err <= lim:
+            raise RuntimeError(f"E1 disagrees with torch.linalg.eigh on {key}: {err} > {lim}")
+        t = device_ms(lambda: eigh_op.eigh(A))
+        t_plain = device_ms(lambda: torch.linalg.eigh(A), reps=20)
+        nb, nops = eigh_op.cost(A.shape[-1], sweeps)     # E1 works in float64
+        tb, to = nb / HBM_BYTES_PER_S * 1e3, nops / FP64_FLOPS_PER_S * 1e3
+        e1[key] = dict(err=err, ms=t, plain_ms=t_plain,
+                       bound=(tb, "bytes") if tb >= to else (to, "operations"))
+        log(f"[2] E1 {key} {tuple(A.shape)}: max gap to torch.linalg.eigh {err:.3e} (limit "
+            f"{lim:.3e}), sweeps {min(sweeps)}-{max(sweeps)}; device {t:.6f} ms/launch, "
+            f"torch.linalg.eigh device {t_plain:.6f} ms (+ its host read of the error codes), "
+            f"bound {e1[key]['bound'][0]:.6f} ms ({e1[key]['bound'][1]})")
     torch.cuda.synchronize()
 
     # 3. the main path ---------------------------------------------------------
-    stencil.LAUNCHES = 0
+    stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
     rec = run_chain(kern, w, host, N_FRAMES)
     torch.cuda.synchronize()
-    launches = {"shi_tomasi": stencil.LAUNCHES}
+    launches = {"shi_tomasi": stencil.LAUNCHES, "poisson_select": poisson.LAUNCHES,
+                "sym_eig": eigh_op.LAUNCHES}
     if rec["n_assoc"] < 50:
         raise RuntimeError(f"association matched {rec['n_assoc']} < 50 window tracks")
-    if launches["shi_tomasi"] != N_FRAMES + 1:
-        raise RuntimeError(f"K1 launched {launches['shi_tomasi']} times in "
-                           f"{N_FRAMES + 1} frames (want one per frame)")
+    if (launches["shi_tomasi"], launches["poisson_select"]) != (N_FRAMES + 1, N_FRAMES + 1):
+        raise RuntimeError(f"K1 and S1 launched {launches} in {N_FRAMES + 1} frames (want one "
+                           f"each per frame)")
     tracked = [int(s.sum()) for s in rec["status"]]
     if not all(np.isfinite(p).all() and np.isfinite(q).all() for p, q in zip(rec["p"], rec["q"])):
         raise RuntimeError("non-finite pose on the main path")
@@ -899,7 +1272,10 @@ def main():
     fs_ms = statistics.median(rec["frame_ms"][1:])
     pnp_ms = statistics.median(rec["pnp_ms"][1:])
     log(f"[3] main path: {rec['n_assoc']} tracks associated, {N_FRAMES} frames, K1 launches "
-        f"{launches['shi_tomasi']}, tracked slots {tracked}, associated alive {rec['alive']}")
+        f"{launches['shi_tomasi']}, S1 launches {launches['poisson_select']}, E1 launches "
+        f"{launches['sym_eig']}, tracked slots {tracked}, associated alive {rec['alive']}")
+    if launches["sym_eig"] < N_FRAMES:
+        raise RuntimeError(f"E1 launched {launches['sym_eig']} times in {N_FRAMES} motion steps")
     log(f"[3] detection rounds per frame {rec['rounds']}")
     log(f"[3] frame_step ms {[round(x, 3) for x in rec['frame_ms']]}")
     log(f"[3] pnp_step ms {[round(x, 3) for x in rec['pnp_ms']]}")
@@ -993,7 +1369,7 @@ def main():
     # detection on every frame (min_free 0) lets it keep two frames in flight
     fast = dict(fused_keyframe=True, chained_keyframe=True, pipelined_host=True,
                 pipeline_depth=2)
-    pairs = (("Config() detect-skip", {}, None),
+    pairs = (("Config() detect-skip", {}, FACADE_FAST_FRAMES),
              ("detection on every frame", dict(feature_tracker_detect_min_free=0),
               FACADE_FAST_FRAMES),
              ("planes on, Config() detect-skip", dict(enable_plane_constraint=True), None))
@@ -1017,7 +1393,8 @@ def main():
                     f"{rec['depth']}), K1 launches {rec['launches']}, ATE {rec['ate']:.6f} m "
                     f"(bound {FACADE_MAX_ATE_M} m)")
                 log(f"[6]   median ms per track_camera call: " + ", ".join(
-                    f"{k} {v[0]:.3f} ({v[1]} calls)" for k, v in state_ms(rec["calls"]).items()))
+                    f"{k} {v[0]:.3f} ({v[1]} calls)" for k, v in state_ms(rec["calls"]).items())
+                    + f"; S1 launches {rec['s1_launches']}, E1 launches {rec['e1_launches']}")
                 if "enable_plane_constraint" in base:
                     check_planes(rec, what)
     finally:
@@ -1029,10 +1406,15 @@ def main():
             for (t1, q1, p1), (t2, q2, p2) in zip(seq["traj"], pipe["traj"]))
         if not same:
             raise RuntimeError(f"{seq['what']} and its pipelined + chained run differ")
+        a, b = state_ms(seq["calls"]), state_ms(pipe["calls"])
         log(f"[6] {seq['what']} == pipelined (depth {pipe['depth']}) + chained: all "
-            f"{len(seq['traj'])} poses identical bit for bit")
+            f"{len(seq['traj'])} poses identical bit for bit; median ms sequential / pipelined: "
+            + ", ".join(f"{k} {a[k][0]:.3f} / {b[k][0]:.3f}" for k in ("tracking", "keyframe")
+                        if k in a and k in b))
     seq = recs[0]
     launches["shi_tomasi"] = recs[4]["launches"]
+    launches["poisson_select"] = recs[4]["s1_launches"]
+    launches["sym_eig"] = recs[4]["e1_launches"]
 
     # the first frames through the port on the CPU, at float32 against the
     # card's run above and at float64 against a card run at float64
@@ -1063,12 +1445,64 @@ def main():
         f"poses written, ATE {cli['ate_cm']} cm as it prints it, over {cli['ate_poses']} "
         f"poses (bound {CLI_MAX_ATE_M} m), {cli['planes']} plane slots at the end")
 
-    # 7. summary -----------------------------------------------------------------
-    kernels = [dict(name="shi_tomasi", route="cuda", source="pvio_torch/csrc/shi_tomasi.cu",
-                    replaces="pvio_tpu/ops/stencil.py:28", launches=launches["shi_tomasi"],
-                    max_abs_err=k1_err_main, ms=k1_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=None)]
-    log(f"[7] total {time.perf_counter() - t_start:.1f} s")
+    # 7. many sequences: the vmapped chain -----------------------------------------
+    t0 = time.perf_counter()
+    ms = multi_seq_phase(cfg)
+    launches.update(ms["launches"])
+    log(f"[7] multi-seq chain, {MS_B} sequences x {ms['frames']} frames ({MS_GROUPS} groups of "
+        f"{MS_KF_EVERY}, planes on, {H}x{W} float32; inputs built in {ms['build_s']:.1f} s): "
+        f"one vmapped chain launched K1 {ms['launches']['shi_tomasi_batched']} and S1 "
+        f"{ms['launches']['poisson_select_batched']} times for {ms['frames']} frames; final "
+        f"costs {[round(float(c[-1]), 3) for c in ms['costs']]}")
+    for i, rel, dp in ms["gaps"]:
+        log(f"[7]   sequence {i} batched vs unbatched on the card: final costs max rel "
+            f"{rel:.3e} (bound {MAX_MS_COST_REL}), positions max |dp| {dp:.3e} m (bound "
+            f"{MAX_MS_DP_M} m)")
+    log(f"[7]   ms per group (host clock, device-synchronised, inputs uploaded in the call): " +
+        ", ".join(f"B={B} batched {ms['ms'][B] / MS_GROUPS:.1f} vs {B} unbatched "
+                  f"{B * ms['single_ms'] / MS_GROUPS:.1f}" for B in (1, 4, MS_B))
+        + f" (unbatched: {len(MS_CHECK)} chains measured, {ms['single_ms'] / MS_GROUPS:.1f} "
+          f"ms per group each); phase {time.perf_counter() - t0:.1f} s")
+
+    # 8. many sequences: the served fleet -------------------------------------------
+    t0 = time.perf_counter()
+    sv = serving_phase(scene, images, recs[4],
+                       dict(enable_plane_constraint=True, fused_keyframe=True))
+    log(f"[8] serving, 2 PVIO engines (planes on; engine 0 = phase 6's stream, engine 1 seed "
+        f"{SERVE_SEED}), {SERVE_FRAMES} frames each: {sv['poses']} poses, each engine == its "
+        f"solo sequential run bit for bit; keyframes {sv['keyframes']}, re-inits "
+        f"{sv['reinits']}; {sv['ticks']} ticks, {sv['two']} with two fleet harvests (frontend + "
+        f"motion step) and the rest one; host waits per tick (transfer.WAITS) by kind of tick, "
+        f"{{waits: ticks}}: {sv['waits']}; median ms per tick with both engines "
+        f"{sv['tick_ms']:.3f} vs the two solo calls {sv['solo_ms']:.3f}; whole stream "
+        f"{sv['serve_s']:.1f} s served vs {sv['solo_s']:.1f} s in the solo runs' calls; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 9. summary -----------------------------------------------------------------
+    def entry(name, route, source, replaces, n, err, t, plain, bound, library=None):
+        return dict(name=name, route=route, source=source, replaces=replaces, launches=n,
+                    max_abs_err=err, ms=t, plain_ms=plain, bound_ms=bound[0],
+                    bound_by=bound[1], library_ms=library)
+
+    k1_src, s1_src = "pvio_torch/csrc/shi_tomasi.cu", "pvio_torch/csrc/poisson_select.cu"
+    kernels = [
+        entry("shi_tomasi", "cuda", k1_src, "pvio_tpu/ops/stencil.py:28", launches["shi_tomasi"],
+              k1_err_main, k1_ms, plain_ms, (bound_ms, bound_by)),
+        entry("shi_tomasi_batched", "cuda", k1_src, "pvio_tpu/ops/stencil.py:28",
+              launches["shi_tomasi_batched"], k1b_err, k1b_ms, k1b_plain_ms,
+              (k1b_bound, k1b_by)),
+        entry("poisson_select", "cuda", s1_src, "none (port-only; XLA array code at "
+              "pvio_tpu/frontend/detect.py:131)", launches["poisson_select"], 0.0, s1_ms,
+              s1_plain_ms, s1_bounds["one"]),
+        entry("poisson_select_batched", "cuda", s1_src, "none (port-only; XLA array code at "
+              "pvio_tpu/frontend/detect.py:131)", launches["poisson_select_batched"], 0.0,
+              s1b_ms, s1b_plain_ms, s1_bounds["stack"]),
+        entry("sym_eig", "cuda", "pvio_torch/csrc/sym_eig.cu", "none (port-only; jnp.linalg.eigh "
+              "at pvio_tpu/geometry/triangulation.py:36)", launches["sym_eig"],
+              e1["4x4"]["err"], e1["4x4"]["ms"], e1["4x4"]["plain_ms"], e1["4x4"]["bound"],
+              library=e1["4x4"]["plain_ms"]),    # torch.linalg.eigh: plain and library call
+    ]
+    log(f"[9] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

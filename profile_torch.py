@@ -31,7 +31,13 @@ planes on, 480x752) and reports, after one warm-up frame:
     `promote_pending` + `extend_planes`, `merge_planes` +
     `update_parameters`) each synchronised before and after: host ms,
     device ms, device events and busy share of each, and the Core
-    bookkeeping (the call's host time outside those four).
+    bookkeeping (the call's host time outside those four);
+  * the multi-sequence chain (`parallel.multi_seq`, chip_smoke.py's phase 7
+    shapes: 2 groups of 4 frames, planes on): one sequence's unbatched
+    chain and one vmapped chain of --chain-b sequences, each run once
+    inside a torch.profiler trace: wall ms, device ms, device events and
+    the device's busy share, and K1's and S1's launches (--no-chain skips
+    it).
 Prints one JSON object as the last line (and writes it to --out).
 """
 
@@ -57,6 +63,8 @@ def main():
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--kf-reps", type=int, default=2)
     ap.add_argument("--no-facade", action="store_true", help="skip the facade breakdown")
+    ap.add_argument("--no-chain", action="store_true", help="skip the multi-sequence chain")
+    ap.add_argument("--chain-b", type=int, default=11, help="sequences of the vmapped chain")
     ap.add_argument("--out", help="also write the result JSON to this file")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -145,6 +153,7 @@ def main():
         k1_device_ms_per_launch=(k1[0][0] / 1e3 / k1[0][1]) if k1 and k1[0][1] else None,
         keyframe=keyframe_breakdown(kern, w, host, args.kf_reps),
         facade=None if args.no_facade else facade_breakdown(),
+        chain=None if args.no_chain else chain_breakdown(cfg, args.chain_b),
     )
     print(f"trace: wall {wall_ms:.1f} ms for first_frame_step + 2 frames, device busy "
           f"{dev_us / 1e3:.2f} ms, {len(kernels)} device events")
@@ -160,6 +169,10 @@ def main():
             print(f"facade {kind:9s} (frame {rec['frame']}, {rec['planes']} planes) {name:46s} host "
                   f"{v['host_ms']:9.3f} ms, device {v['device_ms']:8.3f} ms, "
                   f"{v['device_events']:8.1f} device events")
+    for name, v in (result["chain"] or {}).items():
+        print(f"chain {name:24s} wall {v['wall_ms']:9.1f} ms, device {v['device_ms']:8.3f} ms, "
+              f"{v['device_events']:7d} device events, busy {v['busy_share']:.3f}, K1 launches "
+              f"{v['k1_launches']}, S1 launches {v['s1_launches']}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))
@@ -250,6 +263,46 @@ def keyframe_breakdown(kern, w, host, reps):
             else:
                 setattr(obj, attr, fn)
     return result
+
+
+def chain_breakdown(cfg, B):
+    """The multi-sequence chain unbatched (one sequence) and vmapped over B
+    sequences, each run once after a warm-up run, inside a torch.profiler
+    trace (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.ops import poisson, stencil
+    from pvio_torch.parallel import multi_seq
+
+    kern = DeviceKernels(cfg)
+    inputs = [multi_seq.build_sequence_inputs(cfg, kern, cs.MS_GROUPS * cs.MS_KF_EVERY,
+                                              seed=648 + 31 * i) for i in range(B)]
+    ws, arrays = [w for w, _ in inputs], [a for _, a in inputs]
+    chain = multi_seq.make_chain(kern, cfg, cs.MS_GROUPS, cs.MS_KF_EVERY)
+    zero = torch.zeros((), dtype=kern.dtype, device=kern.device)
+    arrays0 = multi_seq.upload_arrays(kern, arrays[0])
+    runs = {"unbatched (1 sequence)": lambda: chain(ws[0], arrays0, zero),
+            f"vmapped ({B} sequences)": lambda: multi_seq.run_batched(
+                kern, cfg, ws, arrays, cs.MS_GROUPS, cs.MS_KF_EVERY)}
+    out = {}
+    for name, fn in runs.items():
+        fn()                                   # warm-up
+        torch.cuda.synchronize()
+        stencil.LAUNCHES = poisson.LAUNCHES = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        out[name] = dict(wall_ms=wall_ms, device_ms=dev_ms, device_events=len(dev),
+                         busy_share=dev_ms / wall_ms, k1_launches=stencil.LAUNCHES,
+                         s1_launches=poisson.LAUNCHES)
+    return out
 
 
 def facade_breakdown():

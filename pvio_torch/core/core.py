@@ -3,7 +3,7 @@ pipelined host loop and IMU-rate pose prediction.
 
 Matches `pvio_tpu/core/core.py`: `_propagate` and `Core` (`track_gyroscope`,
 `track_accelerometer`, `track_camera`, `_dispatch_native`,
-`_process_frame`, `_advance_pipeline`, `flush`,
+`poll_ready_frame`, `_process_frame`, `_advance_pipeline`, `flush`,
 `_pair_imu`, `_next_ready_frame`, `_dispatch_frames`, `_emit_output`,
 `_predict_output`):
   * gyroscope samples are linearly interpolated onto accelerometer
@@ -15,7 +15,10 @@ Matches `pvio_tpu/core/core.py`: `_propagate` and `Core` (`track_gyroscope`,
 With the native sensor hub (`utils/native.py`, built from
 `csrc/pvio_core.cpp`) and `Config.pipelined_host`, frame k's frontend runs
 on the device while the host finishes frame k-1; the outputs are
-bit-identical to the sequential loop.
+bit-identical to the sequential loop. With `defer_frames` set (the serving
+mode, `parallel/serving.py`) the sensor entry points only queue, and an
+outer host loop takes each ready frame with `poll_ready_frame` and runs the
+dispatch and finish phases itself.
 
 One `DeviceKernels` serves the engine; it runs on CUDA unless `device` says
 otherwise, and a caller may hand in an existing one (`kernels`).
@@ -101,6 +104,11 @@ class Core:
         self._pipeline_depth = max(depth, 1)
         self._ft_queue = deque()  # in-flight frontend handles (oldest first)
         self._swt_pending = None  # in-flight SWT motion-step record
+        # serving mode (parallel/serving.MultiSequenceServer): sensor entry
+        # points only QUEUE; an external host loop polls ready frames and
+        # runs the dispatch/finish phases itself, so N engines can share each
+        # device -> host synchronization point
+        self.defer_frames = False
 
     # ------------------------------------------------------------------
     # public sensor entry points (pvio.h:135-148 facade semantics)
@@ -138,6 +146,8 @@ class Core:
         return self._predict_output(t)
 
     def _dispatch_native(self):
+        if self.defer_frames:
+            return
         while True:
             got = self.hub.poll_frame()
             if got is None:
@@ -145,6 +155,19 @@ class Core:
             fid, t, ts, ws, accs = got
             image = self._images.pop(fid)
             self._process_frame(fid, t, image, ts, ws, accs)
+
+    def poll_ready_frame(self):
+        """(serving host loop) Pop the oldest camera frame whose IMU span is
+        complete WITHOUT processing it; returns (fid, t, image, ts, ws,
+        accs) or None. Only meaningful with `defer_frames` set: the external
+        loop then runs the dispatch/finish phases (parallel/serving.py)."""
+        if self.hub is not None:
+            got = self.hub.poll_frame()
+            if got is None:
+                return None
+            fid, t, ts, ws, accs = got
+            return fid, t, self._images.pop(fid), ts, ws, accs
+        return self._next_ready_frame()
 
     def _process_frame(self, fid, t, image, ts, ws, accs):
         """Run one camera frame through tracker + frontend — sequentially,
@@ -264,6 +287,8 @@ class Core:
         return fid, t, image, ts, ws, accs
 
     def _dispatch_frames(self):
+        if self.defer_frames:
+            return
         while True:
             got = self._next_ready_frame()
             if got is None:

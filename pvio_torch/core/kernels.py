@@ -42,6 +42,7 @@ from pvio_torch.geometry import camera, lie
 from pvio_torch.imu import preintegration as pre
 from pvio_torch.map import window as win
 from pvio_torch.ops import stencil
+from pvio_torch.utils import transfer
 
 _PYRAMID_LEVELS = 2      # 3 images: full, /2, /4 (kernels.py:145-149)
 
@@ -111,8 +112,7 @@ class DeviceKernels:
         normalized level 0)."""
         img = self._to(img)
         if img.dtype == torch.uint8:
-            img = img.to(self.dtype) * torch.tensor(1.0 / 255.0, dtype=self.dtype,
-                                                    device=self.device)
+            img = img.to(self.dtype) * transfer.constant(1.0 / 255.0, self.dtype, self.device)
         else:
             img = img.to(self.dtype)
         img = image_mod.clahe(img) if self.cfg.feature_tracker_clahe else image_mod.normalize(img)
@@ -248,8 +248,8 @@ class DeviceKernels:
         z_obs = self._to(z_obs, dt)
         pnp_mask = self._to(pnp_mask, torch.bool)
         obs_new = self._to(obs_new, torch.bool)
-        tail_q, tail_p, tail_v = w.q[tail_idx], w.p[tail_idx], w.v[tail_idx]
-        tail_bg, tail_ba = w.bg[tail_idx], w.ba[tail_idx]
+        tail_q, tail_p, tail_v, tail_bg, tail_ba = (_row(a, tail_idx)
+                                                    for a in (w.q, w.p, w.v, w.bg, w.ba))
         delta = pre.preintegrate(tp, wp, ap, mp, t_new, tail_bg, tail_ba,
                                  self.noise, assoc=self.assoc)
         q0, p0, v0, bg0, ba0 = pre.predict(delta, tail_q, tail_p, tail_v, tail_bg, tail_ba)
@@ -264,19 +264,19 @@ class DeviceKernels:
         qm, qc = lie.quat_mul, lie.quat_conj
         qij = qc(qm(qm(qm(qc(extr.q_bc), extr.q_bi), delta.q),
                     qm(qc(extr.q_bi), extr.q_bc)))
-        zi = w.kp[kf_idx]
+        zi = _row(w.kp, kf_idx)
         b2 = lie.quat_rotate(qij[None, :], torch.cat([zi, torch.ones_like(zi[:, :1])], dim=-1))
         zsafe = torch.where(torch.abs(b2[..., 2:3]) < 1e-6,
                             torch.full_like(b2[..., 2:3], 1e-6), b2[..., 2:3])
         pi = b2[..., :2] / zsafe
         f = torch.stack([self.K[0, 0], self.K[1, 1]])
         par = torch.linalg.norm((pi - z_obs) * f, dim=-1)
-        common = (w.obs_mask[kf_idx] & w.frame_mask[kf_idx] & obs_new
+        common = (_row(w.obs_mask, kf_idx) & _row(w.frame_mask, kf_idx) & obs_new
                   & (torch.abs(b2[..., 2]) >= 1e-6))
         n_common = torch.sum(common)
         vals, _ = torch.sort(torch.where(common, par, torch.full_like(par, torch.inf)))
         idx = torch.clamp(n_common * 4 // 5, 0, par.shape[0] - 1)
-        p80 = torch.where(n_common > 0, vals[idx], torch.full_like(vals[0], torch.inf))
+        p80 = torch.where(n_common > 0, _row(vals, idx), torch.full_like(vals[0], torch.inf))
         return q1, p1, v1, bg1, ba1, delta.q, inv_d, tri_ok, p80, n_common
 
     # ------------------------------------------------------------------
@@ -411,15 +411,14 @@ class DeviceKernels:
         tri_mask = to(tri_mask, torch.bool)
 
         def put(a, value):
-            out = a.clone()
-            out[slot] = value
-            return out
+            at_slot = torch.arange(a.shape[0], device=a.device) == slot
+            return torch.where(at_slot.reshape(-1, *([1] * (a.dim() - 1))), value, a)
 
         w = w._replace(
             q=put(w.q, to(nf_q, dt)), p=put(w.p, to(nf_p, dt)), v=put(w.v, to(nf_v, dt)),
             bg=put(w.bg, to(nf_bg, dt)), ba=put(w.ba, to(nf_ba, dt)),
             frame_mask=put(w.frame_mask, True), fix_mask=put(w.fix_mask, False),
-            kp=put(w.kp, torch.where(nf_obs[:, None], to(nf_kp, dt), w.kp[slot])),
+            kp=put(w.kp, torch.where(nf_obs[:, None], to(nf_kp, dt), _row(w.kp, slot))),
             obs_mask=put(w.obs_mask, nf_obs))
         w = w._replace(
             inv_depth=torch.where(tri_mask, to(tri_depth, dt), w.inv_depth),
@@ -467,6 +466,12 @@ class DeviceKernels:
                                 self._to(ba, dt), self.noise, assoc=self.assoc)
 
 
+def _row(x, i):
+    """x[i] for an integer or a 0-d index tensor: indexing with a 0-d
+    tensor reads it on the host, indexing with its (1,) view does not."""
+    return x[i.reshape(1)][0] if isinstance(i, torch.Tensor) else x[i]
+
+
 def _merge(kp_kept, status, det_kp, det_mask):
     """In-graph keypoint merge (`kernels.py:266-275`): free rows (status
     false), in ascending order, take the first min(#detections, #free)
@@ -486,5 +491,5 @@ def _merge(kp_kept, status, det_kp, det_mask):
     kp_out = torch.cat([kp_kept, kp_kept.new_zeros(1, 2)], dim=0)
     kp_out[fill_rows] = det_kp[det_idx]
     mask_out = torch.cat([status, status.new_zeros(1)], dim=0)
-    mask_out[fill_rows] = True
+    mask_out[fill_rows] = torch.ones_like(fill_rows, dtype=torch.bool)
     return kp_out[:Kmax], mask_out[:Kmax]

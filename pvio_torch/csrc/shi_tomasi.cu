@@ -1,7 +1,9 @@
 // Fused Shi-Tomasi (GFTT minimum-eigenvalue) corner response for Hopper.
 //
 // Replaces the Pallas TPU kernel pvio_tpu/ops/stencil.py:_shi_tomasi_kernel
-// (entered through shi_tomasi_response_tpu). For an (H, W) float32 image:
+// (entered through shi_tomasi_response_tpu). For each (H, W) float32 image
+// of a stack of B (B = 1 for one image; under the reference's vmap of the
+// chain, one per sequence):
 //   gx, gy  = Scharr / 32 gradients of the zero-padded image,
 //   a, b, c = 3x3 box means of gx*gx, gx*gy, gy*gy, where a product at a
 //             position outside the image counts as 0,
@@ -11,17 +13,19 @@
 // garbage in the 2-px border does not exist here, and the interior is the
 // same function.
 //
-// Bound: the kernel must read the image once and write the response once,
-// 2 * H * W * 4 bytes -- about 2.9 MB at 480x752, i.e. about 0.86 us at
-// the H100's 3.35 TB/s. Its ~57 flops a pixel take ~0.31 us at 67 TFLOP/s
-// of FP32, so bytes bound it. Both are below what a launch costs the device
+// Bound: the kernel must read each image once and write each response once,
+// 2 * B * H * W * 4 bytes -- about 2.9 MB at 480x752, i.e. about 0.86 us at
+// the H100's 3.35 TB/s for one image, and 31.8 MB, 9.48 us, for B = 11. Its
+// ~57 flops a pixel take ~0.31 us (B = 1) at 67 TFLOP/s of FP32, so bytes
+// bound it. Both are below what a launch costs the device
 // (an empty kernel of this grid takes ~0.87 us), so the design aims at the
 // fixed costs: how many waves, how long a block waits for its input, and how
 // many instructions stand between that input and the stores.
 //
 // Design:
-//   * One wave. Each block owns a TH x TW = 24 x 128 output tile, so 480x752
-//     takes 20 x 6 = 120 blocks on the card's 132 SMs; each thread owns 4
+//   * One wave per image. Each block owns a TH x TW = 24 x 128 output tile,
+//     so 480x752 takes 20 x 6 = 120 blocks on the card's 132 SMs (grid z is
+//     the image of the stack: B x 120 blocks); each thread owns 4
 //     adjacent output columns and RUN = 2 output rows, so a warp spans a
 //     tile row (384 threads a block). Tile and RUN were chosen by
 //     measurement (sweep_k1_tiles.py times other values of TH, TW and RUN;
@@ -31,6 +35,10 @@
 //     tensor copy and one mbarrier wait. Its origin (y0-2, x0-4) may lie
 //     outside the image; TMA fills out-of-bounds elements with zeros, which
 //     is the kernel's zero padding, so the load has no bounds checks. The
+//     tensor map is 3-D, (W, H, B) with a box depth of 1: the rows above
+//     and below an image are out of bounds of ITS plane and read as zeros,
+//     where a 2-D map over the (B*H, W) stack would fill the halo with the
+//     neighbouring image's rows. The
 //     column origin is x0-4 and not x0-2 because the card refuses (illegal
 //     instruction) a box whose innermost start coordinate is not a multiple
 //     of 16 B; the 2 extra columns on each side are read and never used.
@@ -55,9 +63,10 @@
 // to lambda_min (it is homogeneous of degree 1 in a, b, c).
 //
 // Plain C interface for ctypes:
-//   pvio_shi_tomasi(in, out, H, W, stream) encodes the tensor map when TMA
-//     applies, launches on `stream` and returns cudaGetLastError(), or the
-//     negated CUresult when the tensor map cannot be encoded;
+//   pvio_shi_tomasi(in, out, B, H, W, stream) encodes the tensor map when
+//     TMA applies, launches once for the B images on `stream` and returns
+//     cudaGetLastError(), or the negated CUresult when the tensor map cannot
+//     be encoded;
 //   pvio_shi_tomasi_plan(H, W, in, plan[7]) writes the launch plan: tile
 //     rows, tile columns, grid x, grid y, 1 if the TMA stage loads the
 //     tile (else 0), box rows, box columns.
@@ -204,12 +213,14 @@ __global__ void __launch_bounds__(TX * TY)
 shi_tomasi_kernel(const __grid_constant__ CUtensorMap map,
                   const float* __restrict__ img, float* __restrict__ out,
                   int H, int W, int use_tma, int vec_store) {
-  // s[ly][lx] holds pixel (y0 + ly - 2, x0 + lx - 4), 0 outside the image
+  // s[ly][lx] holds pixel (y0 + ly - 2, x0 + lx - 4) of image z, 0 outside it
   __shared__ alignas(128) float s[BH][BW];
   __shared__ alignas(8) uint64_t bar;
 
   const int tid = threadIdx.y * TX + threadIdx.x;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH, z = blockIdx.z;
+  img += (size_t)z * H * W;
+  out += (size_t)z * H * W;
 
   if (use_tma) {
     const uint32_t b = smem_u32(&bar);
@@ -224,10 +235,10 @@ shi_tomasi_kernel(const __grid_constant__ CUtensorMap map,
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                    ::"r"(b), "r"(BH * BW * 4) : "memory");
       asm volatile(
-          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1, {%2, %3}], [%4];"
+          "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1, {%2, %3, %4}], [%5];"
           ::"r"(smem_u32(&s[0][0])), "l"(reinterpret_cast<uint64_t>(&map)),
-          "r"(x0 - 4), "r"(y0 - 2), "r"(b) : "memory");
+          "r"(x0 - 4), "r"(y0 - 2), "r"(z), "r"(b) : "memory");
     }
     uint32_t done = 0;
     do {
@@ -286,20 +297,21 @@ extern "C" int pvio_shi_tomasi_plan(int H, int W, const void* img, int* plan) {
   return 0;
 }
 
-extern "C" int pvio_shi_tomasi(const float* img, float* out, int H, int W,
+extern "C" int pvio_shi_tomasi(const float* img, float* out, int B, int H, int W,
                                void* stream) {
-  if (H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
   std::memset(&map, 0, sizeof(map));
   const bool tma = tma_applies(W, img);
   if (tma) {
     const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
     if (encode == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
-    const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)H};
-    const cuuint64_t strides[1] = {(cuuint64_t)W * sizeof(float)};
-    const cuuint32_t box[2] = {BW, BH};
-    const cuuint32_t elem_strides[2] = {1, 1};
-    const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+    const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {(cuuint64_t)W * sizeof(float),
+                                   (cuuint64_t)H * W * sizeof(float)};
+    const cuuint32_t box[3] = {BW, BH, 1};
+    const cuuint32_t elem_strides[3] = {1, 1, 1};
+    const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                               const_cast<float*>(img), dims, strides, box,
                               elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_NONE,
@@ -308,7 +320,7 @@ extern "C" int pvio_shi_tomasi(const float* img, float* out, int H, int W,
     if (r != CUDA_SUCCESS) return -(int)r;
   }
   const int vec_store = W % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   shi_tomasi_kernel<<<grid, dim3(TX, TY), 0, (cudaStream_t)stream>>>(
       map, img, out, H, W, tma ? 1 : 0, vec_store);
   return (int)cudaGetLastError();

@@ -219,6 +219,15 @@ def evaluate_cost(w: WindowState, extr: Extrinsics, cfg: BAConfig):
 # linearization
 
 
+def _pad15(x, *dims):
+    """x with each of `dims` (of size 6, the pose block) zero-padded to the
+    15 entries of a frame's state."""
+    pad = [0] * (2 * x.dim())
+    for d in dims:
+        pad[2 * (x.dim() - 1 - d) + 1] = 15 - x.shape[d]
+    return torch.nn.functional.pad(x, pad)
+
+
 def linearize(w: WindowState, extr: Extrinsics, cfg: BAConfig):
     """Gauss-Newton system. Returns (H (D, D), Hpd (D, T), Hdd (T,), b (D,),
     bd (T,), depth_active (T,), cost, dims (D,)), D = F*15, plus P*3 when
@@ -249,12 +258,11 @@ def linearize(w: WindowState, extr: Extrinsics, cfg: BAConfig):
     onehot_ref = eyeF[w.ref_frame]                        # (T, F)
     Jfull = (torch.einsum("ftai,fg->ftagi", J_tgt, eyeF)
              + torch.einsum("ftai,tg->ftagi", J_ref, onehot_ref))   # (F, T, 2, F, 6)
-    Hpp = torch.zeros(F, 15, F, 15, dtype=dtype, device=dev)
-    bp = torch.zeros(F, 15, dtype=dtype, device=dev)
-    Hpp[:, 0:6, :, 0:6] = torch.einsum("ftagi,ftahj->gihj", Jfull, Jfull)
-    bp[:, 0:6] = torch.einsum("ftagi,fta->gi", Jfull, r_w)
-    Hpd = torch.zeros(F, 15, T, dtype=dtype, device=dev)
-    Hpd[:, 0:6, :] = torch.einsum("ftagi,fta->git", Jfull, J_d)
+    # the pose blocks fill rows and columns 0:6 of each frame's 15; the
+    # rest is zero (padded, not written in place, so the step vmaps)
+    Hpp = _pad15(torch.einsum("ftagi,ftahj->gihj", Jfull, Jfull), 1, 3)
+    bp = _pad15(torch.einsum("ftagi,fta->gi", Jfull, r_w), 1)
+    Hpd = _pad15(torch.einsum("ftagi,fta->git", Jfull, J_d), 1)
     Hdd = torch.einsum("fta,fta->t", J_d, J_d)
     bd = torch.einsum("fta,fta->t", J_d, r_w)
 
@@ -295,8 +303,8 @@ def linearize(w: WindowState, extr: Extrinsics, cfg: BAConfig):
         cost = cost + torch.sum(_cauchy_rho(spl, c2) * mp)
         rpl_w = rpl * wpl
         Jpl_w = Jpl * wpl[:, None, None]
-        Hpp[:, 0:6, :, 0:6] += torch.einsum("tgi,thj->gihj", Jpl_w, Jpl_w)
-        bp[:, 0:6] += torch.einsum("tgi,t->gi", Jpl_w, rpl_w)
+        Hpp = Hpp + _pad15(torch.einsum("tgi,thj->gihj", Jpl_w, Jpl_w), 1, 3)
+        bp = bp + _pad15(torch.einsum("tgi,t->gi", Jpl_w, rpl_w), 1)
 
     dims_pose = _active_dims(w).reshape(-1)
     H = Hpp.reshape(F * 15, F * 15)
@@ -312,19 +320,15 @@ def linearize(w: WindowState, extr: Extrinsics, cfg: BAConfig):
     Hplpl = torch.einsum("ti,tp,tj->pij", Jpl3_w, Epl, Jpl3_w)
     Hpose_pl = torch.einsum("tgi,tp,tj->gipj", Jpl_w, Epl, Jpl3_w)   # (F, 6, P, 3)
     b_pl = torch.einsum("ti,tp,t->pi", Jpl3_w, Epl, rpl_w)
-    D = F * 15 + P * 3
-    cross = torch.zeros(F, 15, P, 3, dtype=dtype, device=dev)
-    cross[:, 0:6] = Hpose_pl
-    cross = cross.reshape(F * 15, P * 3)
+    cross = _pad15(Hpose_pl, 1).reshape(F * 15, P * 3)
     # stay-here anchor on the plane tangent: information only, zero gradient
     anchor = torch.full((3,), 1.0 / cfg.plane_anchor_sigma_n ** 2, dtype=dtype, device=dev)
-    anchor[2] = 1.0 / cfg.plane_anchor_sigma_d ** 2
+    anchor[2].fill_(1.0 / cfg.plane_anchor_sigma_d ** 2)
     Hplpl = Hplpl + torch.diag(anchor)[None, :, :]
-    He = torch.zeros(D, D, dtype=dtype, device=dev)
-    He[:F * 15, :F * 15] = H
-    He[:F * 15, F * 15:] = cross
-    He[F * 15:, :F * 15] = cross.T
-    He[F * 15:, F * 15:] = torch.block_diag(*Hplpl)
+    eyeP = torch.eye(P, dtype=torch.bool, device=dev)[:, None, :, None]
+    Hpl_blocks = torch.where(eyeP, Hplpl[:, :, None, :].expand(P, 3, P, 3),
+                             torch.zeros((), dtype=dtype, device=dev)).reshape(P * 3, P * 3)
+    He = torch.cat([torch.cat([H, cross], dim=1), torch.cat([cross.T, Hpl_blocks], dim=1)])
     be = torch.cat([b, b_pl.reshape(-1)])
     Hpd_e = torch.cat([Hpd, torch.zeros(P * 3, T, dtype=dtype, device=dev)], dim=0)
     dims_pl = (plane_big & w.plane_mask).to(dtype)[:, None].expand(P, 3).reshape(-1)

@@ -160,9 +160,13 @@ def marginalization_residual_and_jacobian(q, p, v, bg, ba, prior):
     F = q.shape[0]
     rq, dx = _prior_dx(q, p, v, bg, ba, prior)
     r = lie.mv(prior.sqrt_info, dx.reshape(-1)) + prior.infovec
-    blocks = torch.eye(15, dtype=p.dtype, device=p.device).repeat(F, 1, 1)
+    # block-diagonal D from (F, 15, 15) blocks, built from the batched
+    # rq (not written in place into a constant), so that it vmaps
+    blocks = p.new_zeros(F, 15, 15) + torch.eye(15, dtype=p.dtype, device=p.device)
     blocks[:, 0:3, 0:3] = lie.right_jacobian_inv(rq)
-    D = torch.block_diag(*blocks)
+    on_diag = torch.eye(F, dtype=torch.bool, device=p.device)[:, None, :, None]
+    D = torch.where(on_diag, blocks[:, :, None, :].expand(F, 15, F, 15),
+                    torch.zeros((), dtype=p.dtype, device=p.device)).reshape(F * 15, F * 15)
     return r, prior.sqrt_info @ D
 
 

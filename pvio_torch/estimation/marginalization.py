@@ -14,7 +14,8 @@ infovec = sqrt(lambda)^-1 V^T b with eigenvalues clamped at 1e-8.
 `eigh` fixes neither the eigenvectors' signs nor the basis inside a
 repeated eigenvalue (the 15 zeroed dims of the removed slot), here or in the
 reference. Only S^T S and S^T infovec are determined, and they are all a
-solve ever uses.
+solve ever uses. On the card `torch.linalg.eigh` reads its error codes on
+the host, so a marginalization waits for the device there.
 """
 
 import torch
@@ -47,11 +48,9 @@ def accumulate_information(w: WindowState, extr: Extrinsics, cfg: BAConfig, inde
     b = (Jm.T @ rm).reshape(F, 15)
 
     # (b) the preintegration factors into and out of the victim
-    include = torch.zeros(F - 1, dtype=torch.bool, device=dev)
-    if index + 1 < F:
-        include[index] = True          # spans index -> index + 1
-    if index >= 1:
-        include[index - 1] = True      # spans index - 1 -> index
+    span = torch.arange(F - 1, device=dev)
+    include = (((span == index) & (index + 1 < F))          # spans index -> index + 1
+               | ((span == index - 1) & (index >= 1)))      # spans index - 1 -> index
     mask_pre = (w.frame_mask[:-1] & w.frame_mask[1:] & w.delta_valid[1:] & include).to(dtype)
     rp, Ji, Jj = preint_factors(w, extr)
     rp = rp * mask_pre[:, None]
@@ -101,7 +100,7 @@ def make_initial_prior(w: WindowState, sqrt_info_value=3.0e3, index: int = 0,
     F = w.q.shape[0]
     dtype, dev = w.p.dtype, w.p.device
     s = sqrt_info_value
-    M = torch.zeros(F * 15, F * 15, dtype=dtype, device=dev)
+    M = w.p.new_zeros(F * 15, F * 15)     # batched with the window under vmap
     sl = index * 15
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     if yaw_only:
@@ -156,7 +155,7 @@ def marginalize_and_remove(w: WindowState, extr: Extrinsics, cfg: BAConfig,
         return _shift_out(a, index)
 
     new_q = shift(w.q)
-    new_q[-1, 0] = 1.0                                    # the freed slot: identity
+    new_q[-1, 0].fill_(1.0)                               # the freed slot: identity
     # the preintegration deltas are re-integrated from raw IMU before the
     # next solve (attach_deltas), not merged across the removed slot
     return w._replace(

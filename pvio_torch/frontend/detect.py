@@ -1,25 +1,26 @@
 """Keypoint detection: Shi-Tomasi response + Poisson-disk-spaced top-K.
 
 Matches `pvio_tpu/frontend/detect.py`: `shi_tomasi_response` (the plain
-version of kernel K1 and its oracle), `_nms`, `detect_keypoints` and
-`poisson_disk_filter` (which, as in the reference, no pipeline step calls).
+version of kernel K1 and its oracle), `_nms`, `detect_keypoints` (split
+here into `candidates` and the selection) and `poisson_disk_filter`
+(which, as in the reference, no pipeline step calls).
 
 Two details carry the reference's results:
   * `lax.top_k` orders ties by lower index, and the greedy-equivalence of
     the parallel Poisson-disk rounds depends on it; `torch.topk` promises
     no tie order, so candidates come from a stable descending sort.
   * the selection rounds run to exhaustion (an early "enough selected"
-    exit would change the result); each round costs one `alive.any()`
-    host sync.
+    exit would change the result). They sit behind `select_candidates`
+    (`ops/poisson.py`, the custom op `pvio::poisson_select`): on the CPU the
+    plain rounds loop, on the card kernel S1, which runs every round on the
+    device, so detection reads nothing back to the host there.
 """
 
 import torch
 import torch.nn.functional as F
 
 from pvio_torch.frontend import image as img_ops
-
-# rounds taken by the last detect_keypoints call (diagnostics only)
-LAST_ROUNDS = 0
+from pvio_torch.ops.poisson import select_candidates
 
 
 def shi_tomasi_response(img, window=3):
@@ -46,9 +47,8 @@ def _sorted_desc(x):
     return torch.sort(x, descending=True, stable=True)
 
 
-def detect_keypoints(
+def candidates(
     img,
-    max_keypoints=150,
     min_distance=20.0,
     existing_xy=None,
     existing_mask=None,
@@ -58,12 +58,9 @@ def detect_keypoints(
     num_candidates=1024,
     response=None,
 ):
-    """Detect up to `max_keypoints` corners with Poisson-disk spacing.
-
-    img (H, W) in [0, 1]; response: optional precomputed corner response
-    (shared with the KLT gate). existing_xy (E, 2) / existing_mask (E,)
-    suppress nearby detections. Returns (xy (K, 2) pixels, mask (K,))."""
-    global LAST_ROUNDS
+    """The response-sorted corner candidates of `detect_keypoints` before
+    the Poisson-disk selection: (cand (C, 2) sub-pixel positions, alive (C,)
+    past the quality gate and clear of the existing keypoints)."""
     H, W = img.shape
     dtype, dev = img.dtype, img.device
     resp = shi_tomasi_response(img) if response is None else response
@@ -104,23 +101,35 @@ def detect_keypoints(
             dist2 = torch.where(existing_mask[None, :], dist2,
                                 torch.full_like(dist2, torch.inf))
         alive = alive & torch.all(dist2 >= d2, dim=1)
+    return cand, alive
+
+
+def detect_keypoints(
+    img,
+    max_keypoints=150,
+    min_distance=20.0,
+    existing_xy=None,
+    existing_mask=None,
+    border=20,
+    quality_level=1e-3,
+    min_response=1e-8,
+    num_candidates=1024,
+    response=None,
+):
+    """Detect up to `max_keypoints` corners with Poisson-disk spacing.
+
+    img (H, W) in [0, 1]; response: optional precomputed corner response
+    (shared with the KLT gate). existing_xy (E, 2) / existing_mask (E,)
+    suppress nearby detections. Returns (xy (K, 2) pixels, mask (K,))."""
+    dtype, dev = img.dtype, img.device
+    cand, alive = candidates(img, min_distance, existing_xy, existing_mask, border,
+                             quality_level, min_response, num_candidates, response)
+    C = cand.shape[0]
 
     # exact greedy Poisson-disk selection in parallel rounds: a candidate
     # wins when no alive earlier-sorted candidate is near it
-    dist2 = torch.sum((cand[:, None, :] - cand[None, :, :]) ** 2, dim=-1)
-    near = dist2 < d2
+    selected = select_candidates(cand, alive, min_distance)
     ar = torch.arange(C, device=dev)
-    dominates = near & (ar[None, :] < ar[:, None])      # j earlier & near i
-    selected = torch.zeros_like(alive)
-    rounds = 0
-    while rounds < C and bool(alive.any()):
-        dominated = torch.any(dominates & alive[None, :], dim=1)
-        winners = alive & ~dominated
-        selected = selected | winners
-        killed = torch.any(near & winners[None, :], dim=1) & ~winners
-        alive = alive & ~winners & ~killed
-        rounds += 1
-    LAST_ROUNDS = rounds
 
     # first K selected in response order
     K = max_keypoints

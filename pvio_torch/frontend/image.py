@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pvio_torch.utils.transfer import constant
+
 
 def normalize(img):
     lo = torch.min(img)
@@ -74,7 +76,7 @@ def _bins(n_bins, dtype, device):
     npdt = np.float32 if dtype == torch.float32 else np.float64
     step = np.arange(n_bins - 1, dtype=npdt) * npdt(npdt(1) / npdt(n_bins - 1))
     vals = np.concatenate([npdt(0) * (npdt(1) - step) + npdt(1) * step, [npdt(1)]])
-    return torch.as_tensor(vals.astype(npdt), device=device)
+    return constant(vals.astype(npdt), dtype, device)
 
 
 def clahe(img, clip_limit=6.0, grid=8, n_bins=64):
@@ -96,14 +98,14 @@ def clahe(img, clip_limit=6.0, grid=8, n_bins=64):
     # bin step (a value on a boundary counts in both neighbours): only the
     # nearest bin and its two neighbours can qualify
     bins = _bins(n_bins, dtype, dev)
-    half = torch.tensor(0.5 / (n_bins - 1), dtype=dtype, device=dev)
+    half = constant(0.5 / (n_bins - 1), dtype, dev)
     k0 = torch.round(tiles * (n_bins - 1)).to(torch.int64)
     hist = torch.zeros(gh * gw, n_bins, dtype=dtype, device=dev)
     for off in (-1, 0, 1):
         k = k0 + off
         kc = k.clamp(0, n_bins - 1)
         hit = (k == kc) & (torch.abs(tiles - bins[kc]) <= half)
-        hist.scatter_add_(1, kc, hit.to(dtype))
+        hist = hist.scatter_add(1, kc, hit.to(dtype))
     hist = hist.reshape(gh, gw, n_bins)
 
     npix = th * tw
@@ -119,8 +121,8 @@ def clahe(img, clip_limit=6.0, grid=8, n_bins=64):
     cdfp = cdfp.permute(1, 2, 0)                       # (gh+2, gw+2, nb)
     a = np.arange(2 * gh)
     b = np.arange(2 * gw)
-    ty0 = torch.as_tensor((a - 1) // 2 + 1, device=dev)
-    tx0 = torch.as_tensor((b - 1) // 2 + 1, device=dev)
+    ty0 = constant((a - 1) // 2 + 1, torch.int64, dev)
+    tx0 = constant((b - 1) // 2 + 1, torch.int64, dev)
     l00 = cdfp[ty0[:, None], tx0[None, :]]             # (2gh, 2gw, nb)
     l01 = cdfp[ty0[:, None], tx0[None, :] + 1]
     l10 = cdfp[ty0[:, None] + 1, tx0[None, :]]
@@ -140,10 +142,10 @@ def clahe(img, clip_limit=6.0, grid=8, n_bins=64):
 
     yy = (np.arange(Hp) + 0.5) / th - 0.5
     xx = (np.arange(Wp) + 0.5) / tw - 0.5
-    fy = torch.as_tensor(np.clip(yy - np.floor(yy) if gh > 1 else yy * 0.0, 0.0, 1.0)
-                         .reshape(2 * gh, hh), dtype=dtype, device=dev)
-    fx = torch.as_tensor(np.clip(xx - np.floor(xx) if gw > 1 else xx * 0.0, 0.0, 1.0)
-                         .reshape(2 * gw, hw), dtype=dtype, device=dev)
+    fy = constant(np.clip(yy - np.floor(yy) if gh > 1 else yy * 0.0, 0.0, 1.0)
+                  .reshape(2 * gh, hh), dtype, dev)
+    fx = constant(np.clip(xx - np.floor(xx) if gw > 1 else xx * 0.0, 0.0, 1.0)
+                  .reshape(2 * gw, hw), dtype, dev)
     wy = fy[:, None, :, None]                          # (2gh, 1, hh, 1)
     wx = fx[None, :, None, :]                          # (1, 2gw, 1, hw)
     out = (pick[0] * (1 - wy) * (1 - wx) + pick[1] * (1 - wy) * wx

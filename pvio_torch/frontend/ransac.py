@@ -17,6 +17,7 @@ import torch
 from pvio_torch.geometry import essential as ess
 from pvio_torch.geometry import homography as hom
 from pvio_torch.utils import threefry
+from pvio_torch.utils.transfer import constant
 
 
 def _sample_indices(key_data, n_hyp, n_sample, mask, dtype):
@@ -89,13 +90,13 @@ def find_fundamental(key_data, x1, x2, mask, threshold=1.0, n_hyp=128):
     a = x1[idx]                                              # (H, 8, 2)
     b = x2[idx]
     ca, cb = torch.mean(a, dim=1), torch.mean(b, dim=1)      # (H, 2)
-    sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=dtype, device=dev))
+    sqrt2 = torch.sqrt(constant(2.0, dtype, dev))
     sa = sqrt2 / torch.clamp(torch.mean(torch.linalg.norm(a - ca[:, None], dim=-1), dim=1), min=1e-9)
     sb = sqrt2 / torch.clamp(torch.mean(torch.linalg.norm(b - cb[:, None], dim=-1), dim=1), min=1e-9)
     an = (a - ca[:, None]) * sa[:, None, None]
     bn = (b - cb[:, None]) * sb[:, None, None]
     rows = ess._epipolar_rows(an, bn)                        # (H, 8, 9)
-    c = torch.tensor(_F_NORM_C, dtype=dtype, device=dev)
+    c = constant(_F_NORM_C, dtype, dev)
     A9 = torch.cat([rows, c.expand(n_hyp, 1, 9)], dim=1)     # (H, 9, 9)
     e9 = torch.zeros(n_hyp, 9, dtype=dtype, device=dev)
     e9[:, 8] = 1.0
@@ -114,8 +115,10 @@ def find_fundamental(key_data, x1, x2, mask, threshold=1.0, n_hyp=128):
     errs = ess.essential_symmetric_error(Fs, x1, x2)          # (H, N)
     inls = (errs < thr) & mask[None, :]
     counts = torch.sum(inls, dim=-1)
-    best = torch.argmax(counts)
-    return Fs[best], inls[best], counts[best]
+    # a 0-d index tensor would be read on the host (`Fs[best]`); a (1,) one
+    # stays on the device
+    best = torch.argmax(counts)[None]
+    return Fs[best][0], inls[best][0], counts[best][0]
 
 
 def find_plane(key_data, points, mask, threshold=0.03, n_hyp=256):

@@ -5,15 +5,19 @@ Matches `pvio_tpu/geometry/triangulation.py`: `_dlt_rows`,
 `pose_matrix`, `triangulate_two_view` and `select_rt_hypothesis`
 (`triangulation.py:24-141`; the vmap over hypotheses is a batch dim).
 The homogeneous point is the smallest eigenvector of A^T A
-(`torch.linalg.eigh` for `jnp.linalg.eigh`). Its sign is arbitrary: the
-valid point q[:3] / w does not depend on it, but the direction returned
-for invalid tracks does, so callers compare invalid entries by their flag
+(`ops.eigh.eigh` for `jnp.linalg.eigh`: `torch.linalg.eigh` on the CPU,
+kernel E1 on the card, which reads nothing back to the host; the
+initializer's two-view triangulation keeps `torch.linalg.eigh` on the
+card, see `triangulate_two_view`). Its sign is arbitrary: the valid
+point q[:3] / w does not depend on it, but the direction returned for
+invalid tracks does, so callers compare invalid entries by their flag
 only.
 """
 
 import torch
 
 from pvio_torch.geometry.camera import project
+from pvio_torch.ops import eigh as eigh_op
 
 MAX_DEPTH = 100.0
 
@@ -25,22 +29,23 @@ def _dlt_rows(P, x):
     return torch.stack([r0, r1], dim=-2)
 
 
-def triangulate_homogeneous(Ps, xs, mask=None):
+def triangulate_homogeneous(Ps, xs, mask=None, eigh=None):
     """DLT point from N views: Ps (..., N, 3, 4), xs (..., N, 2),
-    mask (..., N) -> unit homogeneous point (..., 4)."""
+    mask (..., N) -> unit homogeneous point (..., 4). `eigh` decomposes
+    the (..., 4, 4) normal matrices (default `ops.eigh.eigh`)."""
     rows = _dlt_rows(Ps, xs)                             # (..., N, 2, 4)
     if mask is not None:
         rows = rows * mask[..., None, None].to(rows.dtype)
     A = rows.reshape(*rows.shape[:-3], -1, 4)
     AtA = A.transpose(-1, -2) @ A
-    _, vecs = torch.linalg.eigh(AtA)
+    _, vecs = (eigh or eigh_op.eigh)(AtA)
     return vecs[..., :, 0]
 
 
-def triangulate_scored(Ps, xs, mask=None):
+def triangulate_scored(Ps, xs, mask=None, eigh=None):
     """Triangulate + cheirality/depth check + reprojection score.
     Returns (point (..., 3), valid (...,) bool, score (...,))."""
-    q = triangulate_homogeneous(Ps, xs, mask)
+    q = triangulate_homogeneous(Ps, xs, mask, eigh)
     w = q[..., 3]
     qc = torch.matmul(Ps, q[..., None, :, None])[..., 0]  # (..., N, 3)
     z = qc[..., 2]
@@ -78,7 +83,12 @@ def triangulate_two_view(R, t, x1, x2):
     P2 = pose_matrix(R, t)[..., None, :, :].expand(*lead, N, 3, 4)
     Ps = torch.stack([P1, P2], dim=-3)
     xs = torch.stack([x1, x2], dim=-2).expand(*lead, N, 2, 2)
-    return triangulate_scored(Ps, xs)
+    # torch.linalg.eigh on the card too (one host wait, in the initializer
+    # only): with E1's float64 solve here, the float32 facade's card
+    # positions part from the CPU's by 3.2e-4 m from the first pose on,
+    # over tests/test_torch_cuda.py::test_facade_on_card_matches_cpu's
+    # 1e-4 m (PERF.md)
+    return triangulate_scored(Ps, xs, eigh=torch.linalg.eigh)
 
 
 def select_rt_hypothesis(Rs, Ts, x1, x2, count_threshold=0, R_prior=None,

@@ -81,17 +81,18 @@ def fit_span(ts, ws, accs, t_end, capacity):
 
 
 def unit_quat(dtype, device):
-    """(1, 0, 0, 0) made on the device: a tensor built from a Python list
-    would be copied from pageable host memory, which waits on the stream."""
+    """(1, 0, 0, 0) made on the device: a tensor built from a Python list,
+    or an element set from a Python number (`q[0] = 1.0`), is copied from
+    pageable host memory, which waits on the stream; `fill_` is a kernel."""
     q = torch.zeros(4, dtype=dtype, device=device)
-    q[0] = 1.0
+    q[0].fill_(1.0)
     return q
 
 
 def gravity(dtype, device):
     """(0, 0, -g), made on the device like `unit_quat`."""
     g = torch.zeros(3, dtype=dtype, device=device)
-    g[2] = -GRAVITY_NOMINAL
+    g[2].fill_(-GRAVITY_NOMINAL)
     return g
 
 

@@ -1,8 +1,9 @@
 """Model presets: ready-to-run engine configurations.
 
 The port's own copy of `pvio_tpu/models/presets.py`: `euroc`, `tum_vi`,
-`vio_no_planes`, `fast`, `PRESETS`, `config` and `build` (a live
-`pvio_torch.PVIO`, on CUDA unless `device="cpu"`). Each preset returns a
+`vio_no_planes`, `fast`, `PRESETS`, `config`, `build` (a live
+`pvio_torch.PVIO`, on CUDA unless `device="cpu"`) and `batched_solver` (the
+keyframe BA vmapped over sequences). Each preset returns a
 fully populated `Config` for one deployment shape of the framework:
 
   * ``euroc``          — EuRoC MAV mono+IMU with plane priors (the
@@ -14,8 +15,7 @@ fully populated `Config` for one deployment shape of the framework:
   * ``fast``           — reduced budgets for latency-critical serving
                          (smaller window/track caps, fewer LM iterations)
 
-The reference's `batched_solver` and `sharded_solver` wait for the port's
-parallel layer.
+The reference's `sharded_solver` waits for the port's sharded BA.
 """
 
 import os
@@ -89,3 +89,30 @@ def build(name: str, device=None):
     from pvio_torch.api import PVIO
 
     return PVIO(config(name), device=device)
+
+
+def batched_solver(cfg: Config = None, device=None):
+    """Deployment model: the keyframe-BA step vmapped over a batch of
+    sequences (BASELINE.json config 4), on CUDA unless `device` says
+    otherwise. Returns (step_fn, ba_config)."""
+    import torch
+
+    from pvio_torch.core.kernels import resolve_device
+    from pvio_torch.estimation import ba as ba_mod
+    from pvio_torch.map.window import Extrinsics
+    from pvio_torch.parallel import batch as batch_mod
+
+    cfg = cfg or euroc()
+    dev = resolve_device(device)
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=dev)
+
+    extr = Extrinsics(q_bc=t(cfg.q_bc), p_bc=t(cfg.p_bc), q_bi=t(cfg.q_bi), p_bi=t(cfg.p_bi))
+    ba_cfg = ba_mod.BAConfig(
+        iterations=cfg.solver_iteration_limit,
+        kp_sqrt_inv_cov=cfg.kp_sqrt_inv_cov,
+        use_planes=cfg.enable_plane_constraint,
+    )
+    return batch_mod.make_batched_keyframe_step(extr, ba_cfg), ba_cfg

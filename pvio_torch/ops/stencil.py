@@ -7,20 +7,23 @@ bound with ctypes; its header states the design and the bound (one read +
 one write of the image, ~2.9 MB at 480x752, ~0.86 us at 3.35 TB/s, so
 launch latency sets its time at this size).
 
-`shi_tomasi_response(img)` is the dispatching wrapper: a CPU tensor takes
-the plain PyTorch version (`frontend.detect.shi_tomasi_response`, the
-oracle); a CUDA tensor launches the kernel or raises. Like the TPU wrapper
-(`pvio_tpu/ops/stencil.py:83-100`) it computes in float32 and returns the
-input dtype. The plain version and the kernel agree over the WHOLE image,
-borders included (zero padding for the image taps, zero gradient products
-outside the image).
+`shi_tomasi_response(img)` is the dispatching wrapper, the custom op
+`pvio::shi_tomasi` on an (H, W) image or a (..., H, W) stack: a CPU tensor
+takes the plain PyTorch version (`frontend.detect.shi_tomasi_response`,
+the oracle, image by image); a CUDA tensor launches the kernel or raises.
+Like the TPU wrapper (`pvio_tpu/ops/stencil.py:83-100`) it computes in
+float32 and returns the input dtype. The plain version and the kernel agree
+over the WHOLE image, borders included (zero padding for the image taps,
+zero gradient products outside the image). The op's vmap rule moves the
+batch dimension to the front and makes ONE launch for the whole stack, so
+`torch.func.vmap` of a frame step over B sequences launches K1 once.
 
 `launch_plan(H, W, data_ptr)` is the launcher's rule in Python: the tile,
 the grid and whether the tile arrives by TMA or by per-thread loads. The
 CUDA launcher (`pvio_shi_tomasi_plan`) follows the same rule.
 
-`LAUNCHES` counts kernel launches, so a run can show that its main path
-went through the kernel.
+`LAUNCHES` counts kernel launches (one for a whole stack), so a run can
+show that its main path went through the kernel.
 """
 
 import contextlib
@@ -65,10 +68,10 @@ def launch_plan(H, W, data_ptr):
                 tma=W % 4 == 0 and data_ptr % 16 == 0)
 
 
-def cost(H, W):
-    """(bytes, flops) the response must move and compute at (H, W) in
-    float32: the image read once, the response written once."""
-    return 2 * H * W * 4, FLOPS_PER_PIXEL * H * W
+def cost(H, W, B=1):
+    """(bytes, flops) the response must move and compute for B images of
+    (H, W) in float32: each image read once, each response written once."""
+    return 2 * B * H * W * 4, FLOPS_PER_PIXEL * B * H * W
 
 
 def _lib():
@@ -76,7 +79,7 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load(SOURCE)
         lib.pvio_shi_tomasi.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_void_p]
+                                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.pvio_shi_tomasi.restype = ctypes.c_int
         lib.pvio_shi_tomasi_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                              ctypes.POINTER(ctypes.c_int)]
@@ -101,25 +104,27 @@ def kernel_plan(H, W, data_ptr):
 
 
 def shi_tomasi_response_cuda(img):
-    """Launch K1 on a 2-D CUDA tensor; returns (H, W) in img's dtype."""
+    """Launch K1 once on a contiguous CUDA tensor of one (H, W) image or a
+    (..., H, W) stack; returns the responses in img's dtype."""
     global LAUNCHES
     if img.device.type != "cuda":
         raise ValueError(f"shi_tomasi_response_cuda: needs a CUDA tensor, got {img.device}")
-    if img.dim() != 2:
-        raise ValueError(f"shi_tomasi_response_cuda: needs (H, W), got {tuple(img.shape)}")
+    if img.dim() < 2:
+        raise ValueError(f"shi_tomasi_response_cuda: needs (..., H, W), got {tuple(img.shape)}")
     x = img if img.dtype == torch.float32 else img.to(torch.float32)
     if not x.is_contiguous():
         raise ValueError("shi_tomasi_response_cuda: input must be contiguous")
-    H, W = x.shape
-    if H == 0 or W == 0 or H * W >= 2 ** 31:
-        raise ValueError(f"shi_tomasi_response_cuda: unsupported shape {(H, W)}")
+    H, W = x.shape[-2:]
+    B = x.numel() // max(H * W, 1)
+    if H == 0 or W == 0 or B == 0 or H * W >= 2 ** 31 or B > 65535:
+        raise ValueError(f"shi_tomasi_response_cuda: unsupported shape {tuple(x.shape)}")
     out = torch.empty_like(x)
     fn = _lib().pvio_shi_tomasi
     idx = x.device.index
     # the launcher launches on the current device: switch only when needed
     with (contextlib.nullcontext() if idx == torch.cuda.current_device()
           else torch.cuda.device(idx)):
-        err = fn(x.data_ptr(), out.data_ptr(), H, W, torch._C._cuda_getCurrentRawStream(idx))
+        err = fn(x.data_ptr(), out.data_ptr(), B, H, W, torch._C._cuda_getCurrentRawStream(idx))
     if err < 0:
         raise RuntimeError(f"shi_tomasi kernel: cuTensorMapEncodeTiled failed: CUresult {-err}")
     if err != 0:
@@ -128,11 +133,36 @@ def shi_tomasi_response_cuda(img):
     return out if img.dtype == torch.float32 else out.to(img.dtype)
 
 
-def shi_tomasi_response(img):
-    """Min-eigenvalue corner response: the plain version for a CPU tensor,
-    the Hopper kernel for a CUDA tensor."""
-    if img.device.type == "cpu":
+@torch.library.custom_op("pvio::shi_tomasi", mutates_args=(), device_types="cpu")
+def _shi_tomasi_op(img: torch.Tensor) -> torch.Tensor:
+    if img.dim() == 2:
         return detect.shi_tomasi_response(img)
-    if img.device.type == "cuda":
-        return shi_tomasi_response_cuda(img)
-    raise ValueError(f"shi_tomasi_response: unsupported device {img.device}")
+    H, W = img.shape[-2:]
+    flat = img.reshape(-1, H, W)
+    return torch.stack([detect.shi_tomasi_response(x) for x in flat]).reshape(img.shape)
+
+
+@_shi_tomasi_op.register_kernel("cuda")
+def _(img):
+    return shi_tomasi_response_cuda(img)
+
+
+@_shi_tomasi_op.register_fake
+def _(img):
+    return torch.empty_like(img)
+
+
+@torch.library.register_vmap("pvio::shi_tomasi")
+def _(info, in_dims, img):
+    if in_dims[0] is None:
+        return _shi_tomasi_op(img), None
+    return _shi_tomasi_op(img.movedim(in_dims[0], 0).contiguous()), 0
+
+
+def shi_tomasi_response(img):
+    """Min-eigenvalue corner response of an (H, W) image or a (..., H, W)
+    stack: the plain version for a CPU tensor, the Hopper kernel for a
+    CUDA tensor (one launch for the stack)."""
+    if img.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"shi_tomasi_response: unsupported device {img.device}")
+    return _shi_tomasi_op(img)

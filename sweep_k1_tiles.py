@@ -9,7 +9,8 @@ writes a copy of `pvio_torch/csrc/shi_tomasi.cu` with those values of its
 builds every copy with `pvio_torch.utils.cuda_build` (one nvcc each, all
 started together). The first entry is the kernel's own design.
 `--baseline` adds another source with the same C entry `pvio_shi_tomasi`
-(for example an earlier commit's kernel).
+(in, out, B, H, W, stream), for example an edited copy of the kernel; a
+kernel from before the batched entry (in, out, H, W, stream) does not fit.
 
 The input is the main path's: level 0 of the bench scene's first frame
 after CLAHE (chip_smoke.bench_inputs, DeviceKernels.preprocess), 480x752.
@@ -81,7 +82,7 @@ def main():
         lib, log = built[Path(path)]
         fn = ctypes.CDLL(str(lib)).pvio_shi_tomasi
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[key] = fn
         print(f"{key}: {[ln.strip() for ln in log.splitlines() if 'registers' in ln]}",
@@ -100,7 +101,7 @@ def main():
 
     def launch(fn, x):
         out = torch.empty_like(x)
-        err = fn(x.data_ptr(), out.data_ptr(), H, W, stream)
+        err = fn(x.data_ptr(), out.data_ptr(), 1, H, W, stream)
         if err != 0:
             raise RuntimeError(f"K1 launch failed: {err}")
         return out

@@ -500,3 +500,290 @@ def test_fetch_packs_plane_detection_on_card():
     np.testing.assert_array_equal(w_h, w.cpu().numpy())
     np.testing.assert_array_equal(inl_h, inl_cpu.numpy())
     assert int(cnt_h) == int(cnt_cpu) > 100
+
+
+# ---------------------------------------------------------------------------
+# K1's batched form, kernel S1 (Poisson-disk selection), the device steps'
+# host waits and the vmapped frame step's launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W", [(11, 480, 752), (3, 481, 755), (2, 24, 128), (4, 7, 130)])
+def test_shi_tomasi_batched_matches_single_launches(B, H, W):
+    """One launch for a (B, H, W) stack, directly and through the op's vmap
+    rule: each image bit-equal to its own launch, and within K1's tolerance
+    of the plain version (1e-6 of the range plus 1e-9)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.func import vmap
+
+    from pvio_torch.frontend import detect
+    from pvio_torch.ops import stencil
+
+    imgs = torch.as_tensor(np.random.default_rng(B * H).uniform(size=(B, H, W)),
+                           dtype=torch.float32, device="cuda")
+    before = stencil.LAUNCHES
+    out = stencil.shi_tomasi_response(imgs)
+    assert stencil.LAUNCHES == before + 1
+    out_v = vmap(stencil.shi_tomasi_response)(imgs)
+    assert stencil.LAUNCHES == before + 2
+    assert torch.equal(out, out_v)
+    for b in range(B):
+        single = stencil.shi_tomasi_response(imgs[b].contiguous())
+        assert torch.equal(out[b], single), b
+        ref = detect.shi_tomasi_response(imgs[b])
+        assert float((out[b] - ref).abs().max()) <= 1e-6 * float(ref.abs().max()) + 1e-9
+
+
+@pytest.mark.cuda
+def test_shi_tomasi_batch_seam():
+    """A bright last row in image b above a dark first row in image b + 1:
+    each image's halo past its own edge is zero (the 3-D tensor map), so
+    the stack equals the single launches, where one (B*H, W) image lets
+    the rows of its neighbour into the response near the seam."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pvio_torch.frontend import detect
+    from pvio_torch.ops import stencil
+
+    B, H, W = 3, 48, 256
+    imgs = torch.full((B, H, W), 0.5, device="cuda")
+    imgs[:, H // 2] = 0.8                 # some structure inside each image
+    for b in range(B - 1):
+        imgs[b, -1] = 1.0                 # bright last row of image b
+        imgs[b + 1, 0] = 0.0              # dark first row of image b + 1
+    out = stencil.shi_tomasi_response(imgs)
+    for b in range(B):
+        assert torch.equal(out[b], stencil.shi_tomasi_response(imgs[b].contiguous())), b
+        ref = detect.shi_tomasi_response(imgs[b])
+        assert float((out[b] - ref).abs().max()) <= 1e-6 * float(ref.abs().max()) + 1e-9
+    flat = stencil.shi_tomasi_response(imgs.reshape(B * H, W)).reshape(B, H, W)
+    assert not torch.equal(flat[1, :2], out[1, :2])      # the seam matters here
+
+
+def _selection_case(seed, C, dtype):
+    """C candidates, a 0.85-alive mask, and pairs placed min_distance (12)
+    apart in random directions, so that the squared distance lands within
+    an ulp of d2 and an FMA-contracted dx*dx + dy*dy would flip some."""
+    rng = np.random.default_rng(seed)
+    cand = rng.uniform(0.0, np.sqrt(C) * 9.0, size=(C, 2))
+    theta = rng.uniform(0.0, 2 * np.pi, size=C // 2)
+    cand[1::2][:len(theta)] = cand[0::2][:len(theta)] + 12.0 * np.stack(
+        [np.cos(theta), np.sin(theta)], axis=-1)
+    alive = rng.uniform(size=C) < 0.85
+    return torch.as_tensor(cand, dtype=dtype), torch.as_tensor(alive)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [4, 64, 300, 1024])
+def test_poisson_select_matches_plain_on_card(C, dtype):
+    """S1 equals the plain rounds loop bit for bit, on the card and on the
+    CPU, at 12 px and at 12.3 px (d2 rounded to the candidates' type), with
+    its round count; a stack of 3 takes one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.func import vmap
+
+    from pvio_torch.ops import poisson
+
+    cases = [_selection_case(C + s, C, dtype) for s in range(3)]
+    for min_d in (12.0, 12.3):
+        for cand, alive in cases:
+            before = poisson.LAUNCHES
+            sel = poisson.select_candidates(cand.cuda(), alive.cuda(), min_d)
+            rounds = int(poisson.LAST_KERNEL_ROUNDS[0])
+            assert poisson.LAUNCHES == before + 1
+            plain_card = poisson.select_candidates_plain(cand.cuda(), alive.cuda(), min_d)
+            assert torch.equal(sel, plain_card)
+            assert rounds == poisson.LAST_ROUNDS
+            assert torch.equal(sel.cpu(), poisson.select_candidates_plain(cand, alive, min_d))
+        cand_b = torch.stack([c for c, _ in cases]).cuda()
+        alive_b = torch.stack([a for _, a in cases]).cuda()
+        before = poisson.LAUNCHES
+        sel_b = vmap(poisson.select_candidates, in_dims=(0, 0, None))(cand_b, alive_b, min_d)
+        assert poisson.LAUNCHES == before + 1
+        for b in range(3):
+            assert torch.equal(sel_b[b], poisson.select_candidates_plain(
+                cand_b[b], alive_b[b], min_d))
+
+
+def _frames_case(cfg, seeds=(648,)):
+    """Two rendered uint8 frames per seed of the small configuration, on
+    the card: (len(seeds), 2, H, W)."""
+    from pvio_torch.io import synthetic as TS
+
+    out = []
+    for s in seeds:
+        scene = TS.make_scene(duration=1.0, n_points=200, n_plane_points=80, seed=s)
+        out.append([(TS.render_frame(scene, i, cfg.K, cfg.image_size) * 255 + 0.5)
+                    .astype(np.uint8) for i in (3, 4)])
+    return torch.as_tensor(np.array(out), device="cuda")
+
+
+@pytest.mark.cuda
+def test_device_steps_make_no_host_wait():
+    """frame_step and pnp_step on device inputs run under
+    torch.cuda.set_sync_debug_mode("error"): no host read, no synchronising
+    copy (after one warm-up call of each, which puts the steps' constants
+    on the card). kf_step_chained (do_marg) waits on the host only in the
+    marginalization, once in each of its two `torch.linalg.eigh` calls
+    (the 15x15 pseudo-inverse and the (F*15)-square prior), whose error
+    checks read the device; those waits are named here and stay open."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import warnings
+
+    import chip_smoke as cs
+    from pvio_torch.core.kernels import DeviceKernels
+
+    cfg, w, _, kf_args, tri_ok, tri_mask_host, life = _keyframe_case()
+    k = DeviceKernels(cfg)
+    d = lambda a: torch.as_tensor(a, device="cuda")
+    wd = cs.to_device(w, k.device)
+    imgs = _frames_case(cfg)[0]
+    dq = d(np.array([1.0, 0, 0, 0], np.float32))
+    key = d(np.array([648, 7], np.int64))
+    kf_dev = [d(a) for a in kf_args]
+    nf_kp, nf_obs = kf_dev[15], kf_dev[16]
+    pnp_imu = k.pad_imu(np.linspace(0.0, 0.05, 11), np.zeros((11, 3)),
+                        np.tile([0.0, 0.0, 9.81], (11, 1)))
+    t_new, tri_ok_d, tri_mask_d, life_d = (d(np.float32(0.05)), d(tri_ok), d(tri_mask_host),
+                                           d(life))
+
+    def frame_and_motion():
+        pyr, resp, kp, mask = k.first_frame_step(imgs[0])
+        out = k.frame_step(pyr, resp, imgs[1], kp, mask, dq, key)
+        return out, k.pnp_step(wd, *pnp_imu, t_new, 5, nf_kp, nf_obs, nf_obs, 0)
+
+    def keyframe():
+        return k.kf_step_chained(wd, *kf_dev[:15], nf_kp, nf_obs, kf_dev[17], tri_ok_d,
+                                 tri_mask_d, life_d, 5, False, True)
+
+    frame_and_motion()
+    keyframe()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, pnp = frame_and_motion()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            kf = keyframe()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    waits = [(os.path.basename(c.filename), c.lineno) for c in caught
+             if "synchronizing CUDA operation" in str(c.message)]
+    src = open(os.path.join(os.path.dirname(__file__), "..", "pvio_torch", "estimation",
+                            "marginalization.py")).read().splitlines()
+    assert len(waits) == 2 and {f for f, _ in waits} == {"marginalization.py"}, waits
+    assert all("torch.linalg.eigh(" in src[line - 1] for _, line in waits), waits
+    assert cs.finite(out[2], pnp[0], pnp[1], kf[0].p)
+
+
+@pytest.mark.cuda
+def test_transfer_counts_one_wait_per_harvest():
+    """`transfer.get` harvests the copies of one stream after ONE host wait
+    (on the newest copy), one per stream when copies come from two; a lone
+    `result()`, a tensor leaf and `block` wait once each; a harvested
+    `Fetch` waits no more. The values are the tensors' (exactly)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pvio_torch.utils import transfer
+
+    xs = [torch.arange(1000, device="cuda", dtype=torch.float32) * k for k in range(3)]
+    fs = [transfer.Fetch((x, x[:3].to(torch.int64))) for x in xs]
+    w0 = transfer.WAITS
+    vals = transfer.get(fs)
+    assert transfer.WAITS == w0 + 1
+    for k, (a, b) in enumerate(vals):
+        np.testing.assert_array_equal(a, np.arange(1000, dtype=np.float32) * k)
+        np.testing.assert_array_equal(b, np.arange(3) * k)
+    assert transfer.get(fs[0]) is vals[0] and transfer.WAITS == w0 + 1
+    transfer.Fetch(xs[1]).result()
+    transfer.get({"x": xs[2]})
+    assert transfer.WAITS == w0 + 3
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = xs[1] + 1.0
+        fy = transfer.Fetch(y)
+    main_y, side_y = transfer.get([transfer.Fetch(xs[1]), fy])
+    np.testing.assert_array_equal(side_y, main_y + 1.0)
+    assert transfer.WAITS == w0 + 5
+    transfer.block(xs[0])
+    assert transfer.WAITS == w0 + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sym_eig_matches_eigh_on_card(dtype):
+    """E1 against torch.linalg.eigh on the card: 256 DLT normal matrices
+    (4x4, a quarter of them all zero, as empty track columns are, a
+    quarter poorly conditioned), within chip_smoke.py's eig_gap limit
+    (1e-5 of the largest eigenvalue at float32, 1e-12 at float64); a
+    vmapped stack takes one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.func import vmap
+
+    import chip_smoke as cs
+    from pvio_torch.ops import eigh as eigh_op
+
+    rng = np.random.default_rng(15)
+    rows = rng.normal(size=(256, 8, 4))
+    rows[::4] = 0.0
+    rows[1::4, :, 3] *= 1e-3                      # poorly conditioned columns
+    for A_np in [rows.transpose(0, 2, 1) @ rows]:
+        A = torch.as_tensor(A_np, dtype=dtype, device="cuda")
+        before = eigh_op.LAUNCHES
+        L, V = eigh_op.eigh(A)
+        assert eigh_op.LAUNCHES == before + 1
+        assert int(eigh_op.LAST_SWEEPS.max()) < 30
+        gap, lim = cs.eig_gap(A, L, V, torch.linalg.eigh(A)[0])
+        assert gap <= lim, (A.shape, gap, lim)
+        Lv, Vv = vmap(eigh_op.eigh)(A)
+        assert eigh_op.LAUNCHES == before + 2
+        assert torch.equal(Lv, L) and torch.equal(Vv, V)
+
+
+@pytest.mark.cuda
+def test_vmapped_frame_step_launches_k1_and_s1_once():
+    """torch.func.vmap of first_frame_step and frame_step over B = 3
+    sequences launches K1 once and S1 once per frame, and gives each
+    sequence what its own unbatched step gives (status agreement >= 0.98,
+    tracked keypoints within 1e-3 px: the batched matmuls may round
+    differently)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.func import vmap
+
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.ops import poisson, stencil
+
+    cfg = _small_config()
+    k = DeviceKernels(cfg)
+    imgs = _frames_case(cfg, seeds=(648, 679, 710))
+    dq = torch.zeros(4, device="cuda")
+    dq[0] = 1.0
+    key = torch.full((2,), 648, dtype=torch.int64, device="cuda")
+    l0 = (stencil.LAUNCHES, poisson.LAUNCHES)
+    pyr, resp, kp, mask = vmap(k.first_frame_step)(imgs[:, 0])
+    l1 = (stencil.LAUNCHES, poisson.LAUNCHES)
+    out = vmap(lambda p, r, im, a, m: k.frame_step(p, r, im, a, m, dq, key))(
+        pyr, resp, imgs[:, 1], kp, mask)
+    torch.cuda.synchronize()
+    l2 = (stencil.LAUNCHES, poisson.LAUNCHES)
+    assert l1 == (l0[0] + 1, l0[1] + 1) and l2 == (l1[0] + 1, l1[1] + 1), (l0, l1, l2)
+    for b in range(3):
+        p1, r1, kp1, m1 = k.first_frame_step(imgs[b, 0])
+        assert torch.equal(m1, mask[b]) and float((kp1 - kp[b]).abs().max()) <= 1e-3
+        o1 = k.frame_step(p1, r1, imgs[b, 1], kp1, m1, dq, key)
+        agree = float((o1[4] == out[4][b]).float().mean())
+        both = o1[4] & out[4][b]
+        assert agree >= 0.98 and int(both.sum()) >= 20, (b, agree)
+        assert float((o1[2] - out[2][b])[both].abs().max()) <= 1e-3
