@@ -29,9 +29,11 @@ Phases; each raises on failure, so any failure exits non-zero:
      its own launch bit for bit), kernel S1 (Poisson-disk selection) on
      their candidates, one image and the stack, equal to the plain rounds
      loop bit for bit at float32 and float64 with the same round counts,
-     and kernel E1 (4x4 symmetric eigen-decompositions) on the window's
-     DLT normal matrices against torch.linalg.eigh;
-     each timed beside its plain version and its bound;
+     and on its edge cases (`selection_cases`); kernel E1 (4x4 symmetric
+     eigen-decompositions) on the window's DLT normal matrices and kernel
+     E2 (n x n, one block per matrix) on the marginalization's 15x15 and
+     (F*15)-square matrices and an MS_B stack of the latter, against
+     torch.linalg.eigh; each timed beside its plain version and its bound;
   3. the main path: the bench scene, first_frame_step, the slot -> track
      association, then N_FRAMES x (frame_step -> association -> pnp_step)
      chaining the tail pose, and every KF_EVERY-th frame ba_step
@@ -40,10 +42,13 @@ Phases; each raises on failure, so any failure exits non-zero:
      no host topology upkeep); every solve must lower its cost, accept a
      step and leave a finite window and prior; launch counts are zeroed
      just before and read just after, and K1 and S1 must have launched
-     once per frame, E1 at least once per motion step;
+     once per frame, E1 at least once per motion step, E2 once at each
+     size per marginalization;
   4. the keyframe: one kf_step_chained (do_marg=True) fed the last
      pnp_step's device outputs, and one kf_step fed their host copies,
-     under deterministic algorithms: every output identical. Then the
+     under deterministic algorithms: every output identical; then
+     kf_step_chained under sync debug mode "warn", which must name no
+     synchronising call (fault F2, repaired by E2). Then the
      median device-synchronised times of ba_step, marg_step, kf_step and
      kf_step_chained, and of one BA solve with each preintegration path;
   5. the same chain through the port on the CPU at float32, and the
@@ -93,7 +98,9 @@ Phases; each raises on failure, so any failure exits non-zero:
      phase 6's sequential run, engine 1 the SERVE_SEED room stream held to
      its own solo run, both bit for bit under deterministic algorithms; the
      host waits once or twice per tick; ms per tick beside the two solo
-     calls;
+     calls; then the stream served again under sync debug mode "warn"
+     (so the timed run is not) for PyTorch's own synchronising calls per
+     tick, by kind of tick;
   9. the kernel table (JSON; the single-image entries' launches are the
      planes-on sequential run's, the batched entries' the vmapped chain's),
      the total time, the nvidia-smi line and, last, the result.
@@ -102,12 +109,14 @@ Exits non-zero, printing no result, when CUDA is not available or the
 port's package is not beside this script.
 """
 
+import itertools
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -470,6 +479,50 @@ def keyframe_inputs(kern, w, host, last):
     return w, args, (out[6], out[7]), tri_mask_host, life, slot
 
 
+def selection_cases(dtype, seed=648):
+    """S1's edge cases, [(name, cand (C, 2), alive (C,), min_distance)] as
+    CPU tensors: pairs exactly min_distance apart (on an axis, where the
+    squared distance equals d2, and in random directions, within an ulp of
+    it), every candidate alive, none alive, C = 1 (alive and not), all
+    candidates on one point, min_distance 0, a deep chain (rounds = half
+    its length), and counts of alive candidates that are not a multiple of
+    32 or of a CTA's share of the rows (C = 33, 100, 129, 1000, 1024 with a
+    random mask)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def case(name, cand, alive, md=12.0):
+        return (name, torch.as_tensor(np.asarray(cand, np.float64), dtype=dtype),
+                torch.as_tensor(np.asarray(alive, bool)), md)
+
+    def uniform(C, extent):
+        return rng.uniform(0.0, extent, size=(C, 2))
+
+    exact = uniform(300, 150.0)
+    exact[1::4] = exact[0::4] + [12.0, 0.0]
+    exact[3::4] = exact[2::4] + [0.0, 12.0]
+    ring = uniform(300, 160.0)
+    theta = rng.uniform(0.0, 2 * np.pi, size=150)
+    ring[1::2] = ring[0::2] + 12.0 * np.stack([np.cos(theta), np.sin(theta)], axis=-1)
+    chain = np.stack([np.arange(25) * 10.8, np.zeros(25)], axis=-1)
+    cases = [case("pairs exactly min_distance apart on an axis", exact, np.ones(300)),
+             case("pairs min_distance apart in random directions", ring, rng.uniform(size=300) < 0.85),
+             case("pairs min_distance apart, d2 rounded to the type", ring, np.ones(300), 12.3),
+             case("all alive, dense", uniform(1024, 250.0), np.ones(1024)),
+             case("none alive", uniform(64, 60.0), np.zeros(64)),
+             case("C = 1, alive", uniform(1, 10.0), np.ones(1)),
+             case("C = 1, not alive", uniform(1, 10.0), np.zeros(1)),
+             case("all on one point", np.full((40, 2), 7.25), np.ones(40)),
+             case("min_distance 0", uniform(64, 20.0), np.ones(64), 0.0),
+             case("a deep chain", chain, np.ones(25))]
+    for C in (33, 100, 129, 1000):
+        cases.append(case(f"C = {C}, all alive", uniform(C, 9.0 * np.sqrt(C)), np.ones(C)))
+    cases.append(case("C = 1024, 900 alive", uniform(1024, 300.0),
+                      rng.permutation(1024) < 900))
+    return cases
+
+
 def eig_cases(kern, w):
     """E1's input at the main path's shape: the DLT normal matrices A^T A
     (T, 4, 4) of every track of the window, as `window.triangulate_tracks`
@@ -488,14 +541,43 @@ def eig_cases(kern, w):
     return {"4x4": (A.transpose(-1, -2) @ A).contiguous()}
 
 
+def marg_cases(kern, w, host):
+    """E2's inputs at the main path's shapes: the two symmetric matrices
+    that marginalizing slot 0 of the window decomposes (the 15x15 victim
+    block and the (F*15)-square prior), recorded from one
+    `marg_step` on the bench window, and MS_B copies of the prior, each entry
+    scaled by 1 + 1e-3 u with u a seeded symmetric uniform noise (its
+    zeroed slot stays zero), as the vmapped chain stacks them."""
+    import torch
+
+    from pvio_torch.ops import eigh as eigh_op
+
+    seen, real = [], eigh_op.eigh
+    eigh_op.eigh = lambda A: seen.append(A.clone()) or real(A)
+    try:
+        kern.marg_step(w, *host["imu_ops"])
+    finally:
+        eigh_op.eigh = real
+    A15, AP = seen
+    n = AP.shape[-1]
+    g = torch.Generator(device="cpu").manual_seed(648)
+    u = torch.rand(MS_B, n, n, generator=g, dtype=torch.float64) * 2.0 - 1.0
+    u = ((u + u.transpose(-1, -2)) / 2.0).to(AP.device, AP.dtype)
+    u[0] = 0.0
+    return {"15x15": A15, f"{n}x{n}": AP, f"{MS_B}x{n}x{n}": (AP * (1.0 + 1e-3 * u)).contiguous()}
+
+
 def eig_gap(A, L_k, V_k, L_p):
-    """E1's eigenpairs against torch.linalg.eigh's eigenvalues: the largest
-    of the eigenvalue gap, the kernel's residual |A v - lambda v| and its
-    departure from orthonormality, each relative to the matrix's largest
-    |eigenvalue| (eigenvectors are compared through the residual: their
-    signs, and the basis of a repeated eigenvalue, are free). Returns (gap,
-    limit): 1e-5 at float32 (the decompositions round differently; a
-    tolerance of ~100 unit roundoffs), 1e-12 at float64."""
+    """E1's or E2's eigenpairs against torch.linalg.eigh's eigenvalues: the
+    largest of the eigenvalue gap, the kernel's residual |A v - lambda v|
+    and its departure from orthonormality, each relative to the matrix's
+    largest |eigenvalue| (eigenvectors are compared through the residual:
+    their signs, and the basis of a repeated eigenvalue, are free). Returns
+    (gap, limit): 1e-5 at float32 (the decompositions round differently; a
+    tolerance of ~100 unit roundoffs), 1e-12 at float64; for n x n matrices
+    with 16 n unit roundoffs above that (n = 105 and 135), 16 n unit
+    roundoffs, since an n x n decomposition's error, and the residual's own
+    float32 product, grow with n."""
     import torch
 
     scale = L_p.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
@@ -504,7 +586,8 @@ def eig_gap(A, L_k, V_k, L_p):
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     orth = (V_k.transpose(-1, -2) @ V_k - eye).abs().max()
     gap = float(max(gap_l, res.max(), orth))
-    return gap, (1e-5 if A.dtype == torch.float32 else 1e-12)
+    u, base = (2.0 ** -24, 1e-5) if A.dtype == torch.float32 else (2.0 ** -53, 1e-12)
+    return gap, max(base, 16 * A.shape[-1] * u)
 
 
 def leaves(x):
@@ -531,6 +614,30 @@ def synced_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times), out
+
+
+def sync_sites(caught):
+    """The sites (file:line) of the synchronising calls that sync debug
+    mode "warn" named among the recorded warnings `caught`."""
+    return [f"{os.path.basename(c.filename)}:{c.lineno}" for c in caught
+            if "synchronizing CUDA operation" in str(c.message)]
+
+
+def host_waits(fn):
+    """Run fn() under sync debug mode "warn" and return the sites of the
+    synchronising calls PyTorch made in it (host reads, synchronising
+    copies)."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sync_sites(caught)
 
 
 # ---------------------------------------------------------------------------
@@ -649,8 +756,8 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
     at its time; the first n_frames frames, or all) with K1's count zeroed
     just before; `fused_preint` overrides the BA's preintegration bank
     (the card's is the struct-of-arrays one). Returns the run's record:
-    trajectory, initialization frame, re-inits, keyframe steps, K1
-    launches, poses before the final drain, the plane stages' log, the
+    trajectory, initialization frame, re-inits, keyframe steps, K1, S1,
+    E1 and E2 launches, poses before the final drain, the plane stages' log, the
     decisions after each call and the host ms of every track_camera call
     with its state (before / initializing / tracking / keyframe: a
     keyframe step ran in the call)."""
@@ -689,6 +796,7 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
         fw._pef = factory
     last = len(scene.frame_t) if n_frames is None else n_frames
     stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
+    eigh_op.BLOCK_LAUNCHES.clear()
     calls, decided, init_fi, init_state, fi = [], [], None, None, 0
     for k in range(len(scene.imu_t)):
         t = scene.imu_t[k]
@@ -714,6 +822,7 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
 
         torch.cuda.synchronize()
     launches, s1_launches, e1_launches = stencil.LAUNCHES, poisson.LAUNCHES, eigh_op.LAUNCHES
+    e2_launches = dict(eigh_op.BLOCK_LAUNCHES)
     n_before_drain = len(vio.core.outputs)
     traj = vio.get_trajectory()
     swt = vio.core.frontend.swt
@@ -725,7 +834,7 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
                 n_reinits=vio.core.frontend.n_reinits,
                 initialized=vio.initialized, keyframes=swt.n_keyframes if swt else 0,
                 kf_steps=kf_calls[0], launches=launches, s1_launches=s1_launches,
-                e1_launches=e1_launches, n_frames=fi,
+                e1_launches=e1_launches, e2_launches=e2_launches, n_frames=fi,
                 n_before_drain=n_before_drain, calls=calls, decisions=decided,
                 hub=vio.core.hub is not None,
                 depth=vio.core._pipeline_depth if vio.core._pipelined else 0)
@@ -865,6 +974,7 @@ def multi_seq_phase(cfg):
     import torch
 
     from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.ops import eigh as eigh_op
     from pvio_torch.ops import poisson, stencil
     from pvio_torch.parallel import multi_seq
 
@@ -884,11 +994,18 @@ def multi_seq_phase(cfg):
         return out, 1e3 * (time.perf_counter() - t0)
 
     stencil.LAUNCHES = poisson.LAUNCHES = 0
+    eigh_op.BLOCK_LAUNCHES.clear()
     (costs_b, wfs), ms_full = batched(MS_B)
     launches = {"shi_tomasi_batched": stencil.LAUNCHES, "poisson_select_batched": poisson.LAUNCHES}
+    e2 = dict(eigh_op.BLOCK_LAUNCHES)
     if set(launches.values()) != {n_frames + 1}:
         raise RuntimeError(f"the vmapped chain of {n_frames + 1} frames launched {launches} "
                            "(want one launch of each kernel per frame)")
+    n_prior = cfg.window_frame_capacity * 15
+    if e2 != {15: MS_GROUPS, n_prior: MS_GROUPS}:
+        raise RuntimeError(f"the vmapped chain's {MS_GROUPS} marginalizations launched E2 {e2} "
+                           "times (by n; want one launch of each size per marginalization)")
+    launches["sym_eig_block_batched"] = e2[n_prior]
     if not (np.isfinite(costs_b).all() and len({round(float(c[-1]), 3) for c in costs_b}) == MS_B):
         raise RuntimeError(f"the vmapped chain's final costs are not finite and distinct: {costs_b}")
 
@@ -915,16 +1032,20 @@ def multi_seq_phase(cfg):
     return rec
 
 
-def instrument_ticks(srv):
-    """Wrap `srv._tick` to log each tick's host ms and its kind: "init"
-    when an engine of the tick was initializing before or after it,
-    "keyframe" when an engine ran a keyframe solve in it (a `track_finish`
-    whose window tail is a keyframe), else "steady". Returns (tick_ms,
-    kinds, restore); `restore()` undoes the keyframe count's wrapper."""
+def instrument_ticks(srv, caught):
+    """Wrap `srv._tick` to log each tick's host ms, its kind ("init" when
+    an engine of the tick was initializing before or after it, "keyframe"
+    when an engine ran a keyframe solve in it (a `track_finish` whose
+    window tail is a keyframe), else "steady") and the sites (file:line)
+    of the synchronising calls that sync debug mode named in it (warnings
+    recorded in `caught`: the waits PyTorch makes itself, which
+    `transfer.WAITS` does not count).
+    Returns (tick_ms, kinds, syncs, restore); `restore()` undoes the
+    keyframe count's wrapper."""
     from pvio_torch.core import swt as swt_mod
 
     tick, finish = srv._tick, swt_mod.SlidingWindowTracker.track_finish
-    tick_ms, kinds, solves = [], [], [0]
+    tick_ms, kinds, syncs, solves = [], [], [], [0]
 
     def counted_finish(self, pend, fetched=None):
         solves[0] += bool(self.hw.keyframe[self.hw.n_frames - 1])
@@ -932,10 +1053,11 @@ def instrument_ticks(srv):
 
     def timed_tick(batch):
         fws = [srv.vios[i].core.frontend for i, _ in batch]
-        init0, solves0 = sum(not fw.initialized for fw in fws), solves[0]
+        init0, solves0, syncs0 = sum(not fw.initialized for fw in fws), solves[0], len(caught)
         t0 = time.perf_counter()
         tick(batch)
         tick_ms.append((len(batch), 1e3 * (time.perf_counter() - t0)))
+        syncs.append(sync_sites(caught[syncs0:]))
         init = init0 + sum(not fw.initialized for fw in fws)
         kinds.append("init" if init else "keyframe" if solves[0] > solves0 else "steady")
 
@@ -944,7 +1066,7 @@ def instrument_ticks(srv):
 
     srv._tick = timed_tick
     swt_mod.SlidingWindowTracker.track_finish = counted_finish
-    return tick_ms, kinds, restore
+    return tick_ms, kinds, syncs, restore
 
 
 def check_waits(ticks, kinds):
@@ -965,31 +1087,27 @@ def check_waits(ticks, kinds):
     return {k: dict(sorted(v.items())) for k, v in sorted(hist.items())}
 
 
-def serving_phase(scene0, images0, solo0, cfg_kw):
-    """`parallel.serving.MultiSequenceServer` with two engines on the
-    first SERVE_FRAMES frames: engine 0 the planes-on stream of phase 6
-    (held to phase 6's sequential run `solo0`), engine 1 the room stream of
-    SERVE_SEED (held to its own solo run here), both bit for bit, under
-    deterministic algorithms. Returns the phase's record: the served and
-    solo host ms, the harvests of each tick and its host waits by kind."""
+def serve(cfgs, scenes, images, count_syncs):
+    """Feed the scenes' IMU samples and SERVE_FRAMES frames each to a new
+    `parallel.serving.MultiSequenceServer` of the given configs, one pump
+    per IMU sample of scenes[0]. With count_syncs, sync debug mode "warn"
+    names PyTorch's own synchronising calls in each tick (`instrument_ticks`);
+    without it the ticks are timed as the solo runs were. Returns (server,
+    tick_ms, kinds, syncs, seconds)."""
     import torch
 
     from pvio_torch.parallel.serving import MultiSequenceServer
 
-    scene1, images1 = facade_inputs(facade_config(**cfg_kw), duration=(SERVE_FRAMES + 1) / 20.0,
-                                    seed=SERVE_SEED)
-    scenes, images = (scene0, scene1), (images0, images1)
-    torch.use_deterministic_algorithms(True)
-    try:
+    srv = MultiSequenceServer(cfgs, auto_pump=False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tick_ms, kinds, syncs, restore = instrument_ticks(srv, caught)
+        fis = [0] * len(scenes)
         t0 = time.perf_counter()
-        solo1 = run_facade(facade_config(**cfg_kw), scene1, images1, n_frames=SERVE_FRAMES)
-        solo1_s = time.perf_counter() - t0
-        srv = MultiSequenceServer([facade_config(**cfg_kw) for _ in range(2)], auto_pump=False)
-        tick_ms, kinds, restore = instrument_ticks(srv)
-        fis = [0, 0]
-        t0 = time.perf_counter()
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
         try:
-            for k in range(len(scene0.imu_t)):
+            for k in range(len(scenes[0].imu_t)):
                 for i, scene in enumerate(scenes):
                     if k >= len(scene.imu_t):
                         continue
@@ -1003,16 +1121,44 @@ def serving_phase(scene0, images0, solo0, cfg_kw):
             srv.pump()
         finally:
             restore()
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if fis != [SERVE_FRAMES] * len(scenes):
+        raise RuntimeError(f"serving fed {fis} frames, want {SERVE_FRAMES} each")
+    return srv, tick_ms, kinds, syncs, seconds
+
+
+def serving_phase(scene0, images0, solo0, cfg_kw):
+    """`parallel.serving.MultiSequenceServer` with two engines on the
+    first SERVE_FRAMES frames: engine 0 the planes-on stream of phase 6
+    (held to phase 6's sequential run `solo0`), engine 1 the room stream of
+    SERVE_SEED (held to its own solo run here), both bit for bit, under
+    deterministic algorithms. The stream is served twice: timed with sync
+    debug mode off, as the solo runs were, then with it on to count
+    PyTorch's own synchronising calls per tick. Returns the phase's record:
+    the served and solo host ms, the harvests of each tick and its host
+    waits and synchronising calls by kind."""
+    import torch
+
+    scene1, images1 = facade_inputs(facade_config(**cfg_kw), duration=(SERVE_FRAMES + 1) / 20.0,
+                                    seed=SERVE_SEED)
+    scenes, images = (scene0, scene1), (images0, images1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        solo1 = run_facade(facade_config(**cfg_kw), scene1, images1, n_frames=SERVE_FRAMES)
+        solo1_s = time.perf_counter() - t0
+        srv, tick_ms, kinds, _, serve_s = serve(
+            [facade_config(**cfg_kw) for _ in range(2)], scenes, images, count_syncs=False)
+        srv_c, _, kinds_c, syncs, _ = serve(
+            [facade_config(**cfg_kw) for _ in range(2)], scenes, images, count_syncs=True)
     finally:
         torch.use_deterministic_algorithms(False)
-    if fis != [SERVE_FRAMES, SERVE_FRAMES]:
-        raise RuntimeError(f"serving fed {fis} frames, want {SERVE_FRAMES} each")
     t_last = scene0.frame_t[SERVE_FRAMES - 1]
     want0 = [p for p in solo0["traj"] if p[0] <= t_last]
-    for i, want in ((0, want0), (1, solo1["traj"])):
-        got = srv.get_trajectory(i)
+    for (i, want), server in itertools.product(((0, want0), (1, solo1["traj"])), (srv, srv_c)):
+        got = server.get_trajectory(i)
         same = len(got) == len(want) > 0 and all(
             t1 == t2 and np.array_equal(q1, q2) and np.array_equal(p1, p2)
             for (t1, q1, p1), (t2, q2, p2) in zip(got, want))
@@ -1024,10 +1170,21 @@ def serving_phase(scene0, images0, solo0, cfg_kw):
     if not (set(harvests) <= {1, 2} and sum(h == 2 for h in harvests) >= tracked - 1):
         raise RuntimeError(f"the fleet was not harvested once or twice per tick: {srv.ticks}")
     waits = check_waits(srv.ticks, kinds)
+    hidden, sites = {}, {}
+    for k, tick_sites in zip(kinds_c, syncs):
+        hidden.setdefault(k, {}).setdefault(len(tick_sites), 0)
+        hidden[k][len(tick_sites)] += 1
+        for site in tick_sites:
+            sites.setdefault(k, {}).setdefault(site, 0)
+            sites[k][site] += 1
     both = [ms for n, ms in tick_ms if n == 2]
     solo_calls = [a[1] + b[1] for a, b in zip(solo0["calls"][:SERVE_FRAMES], solo1["calls"])]
     return dict(poses=[len(srv.get_trajectory(i)) for i in range(2)], ticks=len(srv.ticks),
-                two=sum(h == 2 for h in harvests), waits=waits, tick_ms=statistics.median(both),
+                two=sum(h == 2 for h in harvests), waits=waits,
+                hidden={k: dict(sorted(v.items())) for k, v in sorted(hidden.items())},
+                sites={k: dict(sorted(v.items(), key=lambda kv: -kv[1])) for k, v
+                       in sorted(sites.items())},
+                tick_ms=statistics.median(both),
                 solo_ms=statistics.median(solo_calls), serve_s=serve_s,
                 solo_s=sum(m for _, m in solo0["calls"][:SERVE_FRAMES]) / 1e3
                 + sum(m for _, m in solo1["calls"]) / 1e3, solo1_s=solo1_s,
@@ -1227,6 +1384,18 @@ def main():
         f"read per round), bound {s1_bounds['one'][0]:.6f} ms ({s1_bounds['one'][1]}); "
         f"{MS_B} images in one launch: device {s1b_ms:.6f} ms, plain {s1b_plain_ms:.6f} ms, "
         f"bound {s1_bounds['stack'][0]:.6f} ms ({s1_bounds['stack'][1]})")
+    # S1 on its edge cases (tests/test_torch_cuda.py holds it to the same)
+    n_cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for name, cand, alive, md_ in selection_cases(dtype):
+            sel = poisson.select_candidates(cand.to(dev), alive.to(dev), md_)
+            rounds = int(poisson.LAST_KERNEL_ROUNDS[0])
+            if not (torch.equal(sel.cpu(), poisson.select_candidates_plain(cand, alive, md_))
+                    and rounds == poisson.LAST_ROUNDS):
+                raise RuntimeError(f"S1 differs from its plain version on {name} ({dtype})")
+            n_cases += 1
+    log(f"[2] S1 == the plain rounds loop bit for bit, rounds included, on {n_cases} edge cases "
+        f"(selection_cases at float32 and float64)")
     # E1: the eigen-decompositions of the triangulation (one 4x4 normal
     # matrix per track of the bench window)
     e1_cases = eig_cases(kern, to_device(w, dev))
@@ -1243,7 +1412,7 @@ def main():
             raise RuntimeError(f"E1 disagrees with torch.linalg.eigh on {key}: {err} > {lim}")
         t = device_ms(lambda: eigh_op.eigh(A))
         t_plain = device_ms(lambda: torch.linalg.eigh(A), reps=20)
-        nb, nops = eigh_op.cost(A.shape[-1], sweeps)     # E1 works in float64
+        nb, nops = eigh_op.cost(A.shape[-1], len(sweeps))  # in float64, from the input
         tb, to = nb / HBM_BYTES_PER_S * 1e3, nops / FP64_FLOPS_PER_S * 1e3
         e1[key] = dict(err=err, ms=t, plain_ms=t_plain,
                        bound=(tb, "bytes") if tb >= to else (to, "operations"))
@@ -1251,14 +1420,42 @@ def main():
             f"{lim:.3e}), sweeps {min(sweeps)}-{max(sweeps)}; device {t:.6f} ms/launch, "
             f"torch.linalg.eigh device {t_plain:.6f} ms (+ its host read of the error codes), "
             f"bound {e1[key]['bound'][0]:.6f} ms ({e1[key]['bound'][1]})")
+    # E2: the marginalization's two eigen-decompositions on the bench
+    # window (15x15, (F*15)-square) and a vmapped chain's stack of priors
+    e2 = {}
+    for key, A in marg_cases(kern, to_device(w, dev), host).items():
+        n = A.shape[-1]
+        before = eigh_op.BLOCK_LAUNCHES[n]
+        L_k, V_k = eigh_op.eigh(A)
+        sweeps = eigh_op.LAST_SWEEPS.reshape(-1).tolist()
+        if eigh_op.BLOCK_LAUNCHES[n] != before + 1:
+            raise RuntimeError(f"E2 did not launch once for {key}")
+        L_p, _ = torch.linalg.eigh(A)
+        err, lim = eig_gap(A, L_k, V_k, L_p)
+        if not (err <= lim and max(sweeps) < eigh_op.MAX_SWEEPS):
+            raise RuntimeError(f"E2 disagrees with torch.linalg.eigh on {key}: {err} > {lim}, "
+                               f"or did not converge (sweeps {sweeps})")
+        t = device_ms(lambda: eigh_op.eigh(A), reps=10, warmup=2)
+        t_plain = device_ms(lambda: torch.linalg.eigh(A), reps=10, warmup=2)
+        nb, nops = eigh_op.cost(n, len(sweeps))  # in float64, from the input
+        tb, to = nb / HBM_BYTES_PER_S * 1e3, nops / FP64_FLOPS_PER_S * 1e3
+        e2[key] = dict(err=err, ms=t, plain_ms=t_plain,
+                       bound=(tb, "bytes") if tb >= to else (to, "operations"))
+        log(f"[2] E2 {key} {tuple(A.shape)} {A.dtype}: max gap to torch.linalg.eigh {err:.3e} "
+            f"(limit {lim:.3e}), sweeps {min(sweeps)}-{max(sweeps)}; device {t:.6f} ms/launch, "
+            f"torch.linalg.eigh device {t_plain:.6f} ms (+ its host read of the error codes), "
+            f"bound {e2[key]['bound'][0]:.6f} ms ({e2[key]['bound'][1]}: {nb} B, {nops} flop)")
     torch.cuda.synchronize()
 
     # 3. the main path ---------------------------------------------------------
     stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
+    eigh_op.BLOCK_LAUNCHES.clear()
     rec = run_chain(kern, w, host, N_FRAMES)
     torch.cuda.synchronize()
     launches = {"shi_tomasi": stencil.LAUNCHES, "poisson_select": poisson.LAUNCHES,
                 "sym_eig": eigh_op.LAUNCHES}
+    n_prior = cfg.window_frame_capacity * 15
+    e2_chain = dict(eigh_op.BLOCK_LAUNCHES)
     if rec["n_assoc"] < 50:
         raise RuntimeError(f"association matched {rec['n_assoc']} < 50 window tracks")
     if (launches["shi_tomasi"], launches["poisson_select"]) != (N_FRAMES + 1, N_FRAMES + 1):
@@ -1276,6 +1473,11 @@ def main():
         f"{launches['sym_eig']}, tracked slots {tracked}, associated alive {rec['alive']}")
     if launches["sym_eig"] < N_FRAMES:
         raise RuntimeError(f"E1 launched {launches['sym_eig']} times in {N_FRAMES} motion steps")
+    n_kf = N_FRAMES // KF_EVERY
+    if e2_chain != {15: n_kf, n_prior: n_kf}:
+        raise RuntimeError(f"E2 launched {e2_chain} times (by n) in {n_kf} marginalizations "
+                           f"(want one 15x15 and one {n_prior}x{n_prior} each)")
+    log(f"[3] E2 launches by n {e2_chain} in {n_kf} marginalizations")
     log(f"[3] detection rounds per frame {rec['rounds']}")
     log(f"[3] frame_step ms {[round(x, 3) for x in rec['frame_ms']]}")
     log(f"[3] pnp_step ms {[round(x, 3) for x in rec['pnp_ms']]}")
@@ -1310,6 +1512,30 @@ def main():
     log(f"[4] keyframe (do_marg, slot {slot}, {int(host_tri[1].sum())} triangulations adopted): "
         f"kf_step_chained == kf_step on all {len(la)} outputs, bit for bit, under "
         f"deterministic algorithms; cost {c0:.6g} -> {c1:.6g}, {acc} accepted steps")
+    # host waits of the chained keyframe on device inputs (the IMU grids and
+    # masks uploaded first, as the pipelined loop uploads them): PyTorch's
+    # synchronising calls, named by sync debug mode (the marginalization's
+    # two eigh waits were F2; E2 reads nothing back)
+    dev_args = [torch.as_tensor(a, device=dev) for a in (*args, tri_mask_host, life)]
+    torch.cuda.synchronize()
+
+    def chained_kf():
+        kern.kf_step_chained(wk, *dev_args[:-2], tri_depth, tri_ok, *dev_args[-2:], slot, False,
+                             True)
+
+    kf_waits = host_waits(chained_kf)
+    # the witness: the same call with torch.linalg.eigh in E2's place
+    real_eigh = eigh_op.eigh
+    eigh_op.eigh = lambda A: torch.linalg.eigh(A) if A.shape[-1] != eigh_op.N else real_eigh(A)
+    try:
+        eigh_waits = host_waits(chained_kf)
+    finally:
+        eigh_op.eigh = real_eigh
+    log(f"[4] kf_step_chained (do_marg) host waits under sync debug mode: {len(kf_waits)} "
+        f"{kf_waits}; with torch.linalg.eigh in E2's place (fault F2): {len(eigh_waits)} "
+        f"{eigh_waits}")
+    if kf_waits:
+        raise RuntimeError(f"kf_step_chained waited on the host: {kf_waits}")
     w_kf = to_device(w, dev)
     kf_ms = {
         "ba_step": synced_ms(lambda: kern.ba_step(w_kf, *host["imu_ops"], host["track_life"],
@@ -1394,7 +1620,8 @@ def main():
                     f"(bound {FACADE_MAX_ATE_M} m)")
                 log(f"[6]   median ms per track_camera call: " + ", ".join(
                     f"{k} {v[0]:.3f} ({v[1]} calls)" for k, v in state_ms(rec["calls"]).items())
-                    + f"; S1 launches {rec['s1_launches']}, E1 launches {rec['e1_launches']}")
+                    + f"; S1 launches {rec['s1_launches']}, E1 launches {rec['e1_launches']}, "
+                    f"E2 launches by n {rec['e2_launches']}")
                 if "enable_plane_constraint" in base:
                     check_planes(rec, what)
     finally:
@@ -1415,6 +1642,11 @@ def main():
     launches["shi_tomasi"] = recs[4]["launches"]
     launches["poisson_select"] = recs[4]["s1_launches"]
     launches["sym_eig"] = recs[4]["e1_launches"]
+    launches["sym_eig_block_15"] = recs[4]["e2_launches"].get(15, 0)
+    launches[f"sym_eig_block_{n_prior}"] = recs[4]["e2_launches"].get(n_prior, 0)
+    if not launches["sym_eig_block_15"] == launches[f"sym_eig_block_{n_prior}"] > 0:
+        raise RuntimeError(f"E2 launched {recs[4]['e2_launches']} times (by n) in the planes-on "
+                           "facade run (want one 15x15 and one prior per marginalization)")
 
     # the first frames through the port on the CPU, at float32 against the
     # card's run above and at float64 against a card run at float64
@@ -1452,7 +1684,9 @@ def main():
     log(f"[7] multi-seq chain, {MS_B} sequences x {ms['frames']} frames ({MS_GROUPS} groups of "
         f"{MS_KF_EVERY}, planes on, {H}x{W} float32; inputs built in {ms['build_s']:.1f} s): "
         f"one vmapped chain launched K1 {ms['launches']['shi_tomasi_batched']} and S1 "
-        f"{ms['launches']['poisson_select_batched']} times for {ms['frames']} frames; final "
+        f"{ms['launches']['poisson_select_batched']} times for {ms['frames']} frames, E2 "
+        f"{ms['launches']['sym_eig_block_batched']} times at each size for its {MS_GROUPS} "
+        f"marginalizations; final "
         f"costs {[round(float(c[-1]), 3) for c in ms['costs']]}")
     for i, rel, dp in ms["gaps"]:
         log(f"[7]   sequence {i} batched vs unbatched on the card: final costs max rel "
@@ -1473,10 +1707,13 @@ def main():
         f"solo sequential run bit for bit; keyframes {sv['keyframes']}, re-inits "
         f"{sv['reinits']}; {sv['ticks']} ticks, {sv['two']} with two fleet harvests (frontend + "
         f"motion step) and the rest one; host waits per tick (transfer.WAITS) by kind of tick, "
-        f"{{waits: ticks}}: {sv['waits']}; median ms per tick with both engines "
+        f"{{waits: ticks}}: {sv['waits']}; PyTorch's own synchronising calls per tick (sync "
+        f"debug mode \"warn\", on for a second served run), {{calls: ticks}}: {sv['hidden']}; median "
+        f"ms per tick with both engines "
         f"{sv['tick_ms']:.3f} vs the two solo calls {sv['solo_ms']:.3f}; whole stream "
         f"{sv['serve_s']:.1f} s served vs {sv['solo_s']:.1f} s in the solo runs' calls; phase "
         f"{time.perf_counter() - t0:.1f} s")
+    log(f"[8]   their sites by kind of tick, {{file:line: calls}}: {sv['sites']}")
 
     # 9. summary -----------------------------------------------------------------
     def entry(name, route, source, replaces, n, err, t, plain, bound, library=None):
@@ -1502,6 +1739,17 @@ def main():
               e1["4x4"]["err"], e1["4x4"]["ms"], e1["4x4"]["plain_ms"], e1["4x4"]["bound"],
               library=e1["4x4"]["plain_ms"]),    # torch.linalg.eigh: plain and library call
     ]
+    e2_src = "pvio_torch/csrc/sym_eig_block.cu"
+    e2_replaces = ("none (port-only; jnp.linalg.eigh at pvio_tpu/estimation/marginalization.py:41 "
+                   "and :209)")
+    for name, key, n in (("sym_eig_block_15", "15x15", launches["sym_eig_block_15"]),
+                         (f"sym_eig_block_{n_prior}", f"{n_prior}x{n_prior}",
+                          launches[f"sym_eig_block_{n_prior}"]),
+                         ("sym_eig_block_batched", f"{MS_B}x{n_prior}x{n_prior}",
+                          launches["sym_eig_block_batched"])):
+        kernels.append(entry(name, "cuda", e2_src, e2_replaces, n, e2[key]["err"], e2[key]["ms"],
+                             e2[key]["plain_ms"], e2[key]["bound"],
+                             library=e2[key]["plain_ms"]))   # torch.linalg.eigh, as for E1
     log(f"[9] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

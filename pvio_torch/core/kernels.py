@@ -41,6 +41,7 @@ from pvio_torch.frontend import ransac as ransac_mod
 from pvio_torch.geometry import camera, lie
 from pvio_torch.imu import preintegration as pre
 from pvio_torch.map import window as win
+from pvio_torch.ops import eigh as eigh_op
 from pvio_torch.ops import stencil
 from pvio_torch.utils import transfer
 
@@ -67,6 +68,8 @@ class DeviceKernels:
     def __init__(self, cfg, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            eigh_op.check_window(cfg.window_frame_capacity)
         if cfg.dtype not in ("float32", "float64"):
             raise ValueError(f"unsupported Config.dtype {cfg.dtype!r}")
         self.dtype = torch.float32 if cfg.dtype == "float32" else torch.float64

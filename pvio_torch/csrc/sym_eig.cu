@@ -37,14 +37,15 @@
 // The sweep count of each matrix goes to `sweeps`.
 //
 // Bound: bytes move n^2 in and n + n^2 out per matrix (288 bytes in
-// float64); the operations are the sweeps' rotations, ~(12 n + 20) flops
-// each, about 400 a sweep, at the card's 34 TFLOP/s of
-// FP64. At the motion step's 256 matrices the work is a few microseconds of
-// eight warps; a launch sets the time, as for K1.
+// float64); the operations are what a decomposition with eigenvectors
+// needs, ~9 n^3 = 576 flops (ops/eigh.py's cost), at the card's 34 TFLOP/s
+// of FP64. At the motion step's 256 matrices the work is a few microseconds
+// of eight warps; a launch sets the time, as for K1.
 //
 // Plain C interface for ctypes:
 //   pvio_sym_eig(A, L, V, sweeps, B, stream) on B float64 4x4 matrices launches
-//     on `stream` and returns cudaGetLastError().
+//     on `stream` and returns cudaGetLastError();
+//   pvio_sym_eig_max_sweeps() returns MAX_SWEEPS.
 
 #include <cuda_runtime.h>
 
@@ -164,6 +165,8 @@ sym_eig_kernel(const double* __restrict__ A, double* __restrict__ L, double* __r
 }
 
 }  // namespace
+
+extern "C" int pvio_sym_eig_max_sweeps() { return MAX_SWEEPS; }
 
 extern "C" int pvio_sym_eig(const void* A, void* L, void* V, void* sweeps, int B,
                             void* stream) {

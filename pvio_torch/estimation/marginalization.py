@@ -14,8 +14,10 @@ infovec = sqrt(lambda)^-1 V^T b with eigenvalues clamped at 1e-8.
 `eigh` fixes neither the eigenvectors' signs nor the basis inside a
 repeated eigenvalue (the 15 zeroed dims of the removed slot), here or in the
 reference. Only S^T S and S^T infovec are determined, and they are all a
-solve ever uses. On the card `torch.linalg.eigh` reads its error codes on
-the host, so a marginalization waits for the device there.
+solve ever uses. Both decompositions go through `ops.eigh.eigh`:
+`torch.linalg.eigh` on the CPU, kernel E2 on the card (in float64), which
+reads nothing back to the host, where `torch.linalg.eigh` would read its
+error codes and make the marginalization wait for the device twice.
 """
 
 import torch
@@ -26,11 +28,12 @@ from pvio_torch.estimation.ba import (BAConfig, _grid_args, _repro_residual_t,
 from pvio_torch.geometry import lie
 from pvio_torch.map import window as win
 from pvio_torch.map.window import TF_PLANE, TF_VALID, Extrinsics, MargPrior, WindowState
+from pvio_torch.ops import eigh as eigh_op
 from pvio_torch.utils.autodiff import value_and_jacfwd
 
 
 def _clamped_pinv(M, eps=1e-8):
-    lam, V = torch.linalg.eigh(M)
+    lam, V = eigh_op.eigh(M)
     lam_inv = torch.where(lam > eps, 1.0 / torch.where(lam > eps, lam, 1.0), 0.0)
     return (V * lam_inv[None, :]) @ V.T
 
@@ -105,7 +108,7 @@ def make_initial_prior(w: WindowState, sqrt_info_value=3.0e3, index: int = 0,
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     if yaw_only:
         e_z = torch.zeros(3, dtype=dtype, device=dev)
-        e_z[2] = 1.0
+        e_z[2].fill_(1.0)                 # a kernel; `e_z[2] = 1.0` would copy from the host
         a = lie.quat_rotate(lie.quat_conj(w.q[index]), e_z)
         a = a / torch.clamp(torch.linalg.norm(a), min=1e-12)
         M[sl:sl + 3, sl:sl + 3] = s * torch.outer(a, a)
@@ -144,7 +147,7 @@ def marginalize_and_remove(w: WindowState, extr: Extrinsics, cfg: BAConfig,
     H3 = _shift_out(_shift_out(H3, index).permute(2, 3, 0, 1), index).permute(2, 3, 0, 1)
     b3 = _shift_out(b2.reshape(F, 15), index)
 
-    lam, V = torch.linalg.eigh(H3.reshape(F * 15, F * 15))
+    lam, V = eigh_op.eigh(H3.reshape(F * 15, F * 15))
     ok = lam > 1e-8
     lam_c = torch.where(ok, lam, 0.0)
     lam_inv = torch.where(ok, 1.0 / torch.where(ok, lam, 1.0), 0.0)

@@ -3,8 +3,12 @@
 A kernel of the port only: the reference runs these rounds as XLA array
 code in `lax.while_loop` (`pvio_tpu/frontend/detect.py:131-151`), on the
 device and with no host read. The CUDA source is
-`pvio_torch/csrc/poisson_select.cu` (sm_90a), built with nvcc at first use
-and bound with ctypes; its header states the design and the bound.
+`pvio_torch/csrc/poisson_select.cu` (sm_90a: one thread block cluster of 8
+CTAs per image, the alive candidates compacted, their neighbour relation
+built once as bit-packed rows spread over the cluster, each round a few
+word operations per row and two cluster barriers), built with nvcc at
+first use and bound with ctypes; its header states the design and the
+bound.
 
 `select_candidates(cand, alive, min_distance)` is the dispatching wrapper,
 the custom op `pvio::poisson_select` on (C, 2) candidates and a (C,) alive
@@ -29,7 +33,7 @@ import torch
 from pvio_torch.utils import cuda_build
 
 SOURCE = cuda_build.CSRC / "poisson_select.cu"
-MAX_CANDIDATES = 1024       # one thread a candidate, one block an image
+MAX_CANDIDATES = 1024       # one thread a candidate in each CTA of an image's cluster
 LAUNCHES = 0
 LAST_ROUNDS = 0
 LAST_KERNEL_ROUNDS = None

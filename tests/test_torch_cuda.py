@@ -623,19 +623,18 @@ def _frames_case(cfg, seeds=(648,)):
 
 @pytest.mark.cuda
 def test_device_steps_make_no_host_wait():
-    """frame_step and pnp_step on device inputs run under
+    """frame_step, pnp_step and kf_step_chained (do_marg, without and with
+    make_prior) on device inputs run under
     torch.cuda.set_sync_debug_mode("error"): no host read, no synchronising
     copy (after one warm-up call of each, which puts the steps' constants
-    on the card). kf_step_chained (do_marg) waits on the host only in the
-    marginalization, once in each of its two `torch.linalg.eigh` calls
-    (the 15x15 pseudo-inverse and the (F*15)-square prior), whose error
-    checks read the device; those waits are named here and stay open."""
+    on the card). The marginalization's two eigen-decompositions (the
+    15x15 pseudo-inverse and the (F*15)-square prior) go through kernel
+    E2, which reads nothing back; both launch in each keyframe."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    import warnings
-
     import chip_smoke as cs
     from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.ops import eigh as eigh_op
 
     cfg, w, _, kf_args, tri_ok, tri_mask_host, life = _keyframe_case()
     k = DeviceKernels(cfg)
@@ -656,33 +655,28 @@ def test_device_steps_make_no_host_wait():
         out = k.frame_step(pyr, resp, imgs[1], kp, mask, dq, key)
         return out, k.pnp_step(wd, *pnp_imu, t_new, 5, nf_kp, nf_obs, nf_obs, 0)
 
-    def keyframe():
+    def keyframe(make_prior):
         return k.kf_step_chained(wd, *kf_dev[:15], nf_kp, nf_obs, kf_dev[17], tri_ok_d,
-                                 tri_mask_d, life_d, 5, False, True)
+                                 tri_mask_d, life_d, 5, make_prior, True)
 
     frame_and_motion()
-    keyframe()
+    keyframe(False)
+    keyframe(True)
     torch.cuda.synchronize()
+    e2 = dict(eigh_op.BLOCK_LAUNCHES)
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, pnp = frame_and_motion()
+        kf = keyframe(False)
+        kf_prior = keyframe(True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            kf = keyframe()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    waits = [(os.path.basename(c.filename), c.lineno) for c in caught
-             if "synchronizing CUDA operation" in str(c.message)]
-    src = open(os.path.join(os.path.dirname(__file__), "..", "pvio_torch", "estimation",
-                            "marginalization.py")).read().splitlines()
-    assert len(waits) == 2 and {f for f, _ in waits} == {"marginalization.py"}, waits
-    assert all("torch.linalg.eigh(" in src[line - 1] for _, line in waits), waits
-    assert cs.finite(out[2], pnp[0], pnp[1], kf[0].p)
+    F = cfg.window_frame_capacity
+    assert {n: eigh_op.BLOCK_LAUNCHES[n] - e2.get(n, 0) for n in (15, F * 15)} == {
+        15: 2, F * 15: 2}, dict(eigh_op.BLOCK_LAUNCHES)
+    assert cs.finite(out[2], pnp[0], pnp[1], kf[0].p, kf[0].prior.sqrt_info,
+                     kf_prior[0].prior.sqrt_info)
 
 
 @pytest.mark.cuda
@@ -787,3 +781,157 @@ def test_vmapped_frame_step_launches_k1_and_s1_once():
         both = o1[4] & out[4][b]
         assert agree >= 0.98 and int(both.sum()) >= 20, (b, agree)
         assert float((o1[2] - out[2][b])[both].abs().max()) <= 1e-3
+
+
+def _marg_like(rng, B, n, zeroed=15):
+    """B symmetric positive semi-definite n x n matrices shaped like the
+    marginalization's: J^T J with column scales over three decades, the
+    last `zeroed` rows and columns exactly zero (the slot `_shift_out`
+    frees; none when zeroed = 0)."""
+    J = rng.normal(size=(B, 2 * n, n)) * 10.0 ** rng.uniform(0.0, 1.5, size=(B, 1, n))
+    A = J.transpose(0, 2, 1) @ J
+    if zeroed:
+        A[:, -zeroed:, :] = 0.0
+        A[:, :, -zeroed:] = 0.0
+    return A
+
+
+# E2 against torch.linalg.eigh at the same dtype: the eigenpairs within
+# chip_smoke.eig_gap's limit (at float32 1e-5 of the largest eigenvalue,
+# or 16 n unit roundoffs for n > 10; at float64 1e-12), V diag(L) V^T
+# within the same of A, and the marginalization's products (the clamped
+# pseudo-inverse of a full-rank matrix, S^T S = V diag(clamped L) V^T of a
+# rank-deficient one) against torch.linalg.eigh's in float64 of the same
+# matrix, which is what E2 computes: within 1e-8 relative for the
+# pseudo-inverse (its condition number is ~1e5) and 1e-12 for S^T S at
+# float64; at float32 the eigenpairs are rounded on the way out and the
+# products summed over n terms in float32: eig_gap's float32 limit.
+E2_PINV_REL_F64 = 1e-8
+E2_STS_REL_F64 = 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [15, 105, 135])
+def test_sym_eig_block_matches_eigh_on_card(n, dtype):
+    """Kernel E2 at the marginalization's sizes (15: the victim block;
+    105 and 135: the (F*15)-square prior at F = 7 and 9), one matrix and a
+    vmapped stack of 11 in one launch, against torch.linalg.eigh; it
+    converges within its sweep limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.func import vmap
+
+    import chip_smoke as cs
+    from pvio_torch.estimation import marginalization as marg
+    from pvio_torch.ops import eigh as eigh_op
+
+    rng = np.random.default_rng(n)
+    full = torch.as_tensor(_marg_like(rng, 11, n, zeroed=0), dtype=dtype, device="cuda")
+    deficient = torch.as_tensor(_marg_like(rng, 11, n, zeroed=15 if n > 15 else 5), dtype=dtype,
+                                device="cuda")
+    for A in (full, deficient):
+        L_p, _ = torch.linalg.eigh(A)
+        before = eigh_op.BLOCK_LAUNCHES[n]
+        L1, V1 = eigh_op.eigh(A[0])
+        Lv, Vv = vmap(eigh_op.eigh)(A)
+        assert eigh_op.BLOCK_LAUNCHES[n] == before + 2
+        assert int(eigh_op.LAST_SWEEPS.max()) < eigh_op.MAX_SWEEPS
+        assert torch.equal(Lv[0], L1) and torch.equal(Vv[0], V1)
+        gap, lim = cs.eig_gap(A, Lv, Vv, L_p)
+        assert gap <= lim, (gap, lim)
+        scale = float(L_p.abs().max())
+        rec = float(((Vv * Lv[..., None, :]) @ Vv.transpose(-1, -2) - A).abs().max()) / scale
+        assert rec <= lim, (rec, lim)
+        L64, V64 = torch.linalg.eigh(A.double())
+        if A is full:
+            got = torch.stack([marg._clamped_pinv(a) for a in A]).double()
+            want = (V64 * torch.where(L64 > 1e-8, 1.0 / L64, 0.0)[..., None, :]) @ V64.mT
+            rel = float((got - want).abs().max() / want.abs().max())
+            assert rel <= (E2_PINV_REL_F64 if dtype == torch.float64 else lim), rel
+        else:
+            lam = torch.where(Lv > 1e-8, Lv, 0.0).double()
+            sts = (Vv.double() * lam[..., None, :]) @ Vv.double().mT
+            want = (V64 * torch.where(L64 > 1e-8, L64, 0.0)[..., None, :]) @ V64.mT
+            rel = float((sts - want).abs().max() / want.abs().max())
+            assert rel <= (E2_STS_REL_F64 if dtype == torch.float64 else lim), rel
+    with pytest.raises(ValueError):
+        eigh_op.sym_eig_cuda(torch.eye(eigh_op.N_MAX + 1, dtype=dtype, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_poisson_select_edge_cases_on_card(dtype):
+    """The redesigned S1 equals the plain rounds loop bit for bit, round
+    counts included, on chip_smoke.selection_cases (the CPU tests hold the
+    plain loop to the reference's rounds on the same cases), one launch
+    each; then all cases of 1024 or fewer candidates padded to one C as a
+    vmapped stack in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.func import vmap
+
+    import chip_smoke as cs
+    from pvio_torch.ops import poisson
+
+    cases = cs.selection_cases(dtype)
+    for name, cand, alive, md in cases:
+        before = poisson.LAUNCHES
+        sel = poisson.select_candidates(cand.cuda(), alive.cuda(), md)
+        rounds = int(poisson.LAST_KERNEL_ROUNDS[0])
+        assert poisson.LAUNCHES == before + 1
+        plain = poisson.select_candidates_plain(cand, alive, md)
+        assert torch.equal(sel.cpu(), plain) and rounds == poisson.LAST_ROUNDS, name
+    C = max(c.shape[0] for _, c, _, _ in cases)
+    cand_b = torch.stack([torch.cat([c, c.new_zeros(C - c.shape[0], 2)]) for _, c, _, _ in cases])
+    alive_b = torch.stack([torch.cat([a, a.new_zeros(C - a.shape[0])]) for _, _, a, _ in cases])
+    before = poisson.LAUNCHES
+    sel_b = vmap(poisson.select_candidates, in_dims=(0, 0, None))(cand_b.cuda(), alive_b.cuda(),
+                                                                 12.0)
+    rounds_b = poisson.LAST_KERNEL_ROUNDS.tolist()
+    assert poisson.LAUNCHES == before + 1
+    for b in range(len(cases)):
+        plain = poisson.select_candidates_plain(cand_b[b], alive_b[b], 12.0)
+        assert torch.equal(sel_b[b].cpu(), plain) and rounds_b[b] == poisson.LAST_ROUNDS, b
+
+
+@pytest.mark.cuda
+def test_poisson_select_on_bench_frames_on_card():
+    """S1 on the candidates of 11 rendered frames at Config()'s 480x752
+    (K1's responses, Config()'s min_distance): each image and the 11-image
+    vmapped stack (one launch) equal the plain rounds loop bit for bit,
+    round counts included, at float32 and float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.func import vmap
+
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.frontend import detect
+    from pvio_torch.io import synthetic as TS
+    from pvio_torch.io.config import Config
+    from pvio_torch.ops import poisson, stencil
+
+    cfg = Config()
+    cfg.dtype = "float32"
+    k = DeviceKernels(cfg)
+    scene = TS.make_scene(duration=1.0, n_points=280, n_plane_points=160, seed=648)
+    imgs = [k.preprocess(torch.as_tensor((TS.render_frame(scene, i, cfg.K, cfg.image_size) * 255
+                                          + 0.5).astype(np.uint8), device="cuda"))[0]
+            for i in range(11)]
+    stack = torch.stack(imgs).contiguous()
+    resp = stencil.shi_tomasi_response(stack)
+    md = cfg.feature_tracker_min_keypoint_distance
+    cands = [detect.candidates(stack[b], md, border=20, response=resp[b]) for b in range(11)]
+    for dtype in (torch.float32, torch.float64):
+        cand_b = torch.stack([c for c, _ in cands]).to(dtype).contiguous()
+        alive_b = torch.stack([a for _, a in cands]).contiguous()
+        before = poisson.LAUNCHES
+        sel_b = vmap(poisson.select_candidates, in_dims=(0, 0, None))(cand_b, alive_b, md)
+        rounds_b = poisson.LAST_KERNEL_ROUNDS.tolist()
+        assert poisson.LAUNCHES == before + 1
+        for b in range(11):
+            sel = poisson.select_candidates(cand_b[b], alive_b[b], md)
+            rounds = int(poisson.LAST_KERNEL_ROUNDS[0])
+            plain = poisson.select_candidates_plain(cand_b[b], alive_b[b], md)
+            assert torch.equal(sel, plain) and torch.equal(sel_b[b], plain), b
+            assert rounds == rounds_b[b] == poisson.LAST_ROUNDS, (b, rounds, rounds_b[b])

@@ -8,12 +8,16 @@ test_torch_frontend); vmapped calls equal single calls bit for bit (the
 CPU implementations run the plain version image by image).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from torch.func import vmap
 
+import chip_smoke as cs
 from pvio_tpu.frontend import detect as Jdet
 from pvio_torch.frontend import detect as Tdet
 from pvio_torch.ops import poisson, stencil
@@ -34,6 +38,55 @@ def _greedy(cand, alive, min_distance):
     out = np.zeros(len(cand), bool)
     out[taken] = True
     return out
+
+
+@functools.partial(jax.jit, static_argnums=2)
+def _reference_rounds(cand, alive, d2):
+    """The reference's selection rounds as `detect_keypoints` runs them
+    (pvio_tpu/frontend/detect.py:124-151; d2 a Python float, weakly typed as
+    there), returning the selected mask and the round count."""
+    dist2 = jnp.sum((cand[:, None, :] - cand[None, :, :]) ** 2, axis=-1)
+    near = dist2 < d2
+    C_ = cand.shape[0]
+    ii = jax.lax.broadcasted_iota(jnp.int32, (C_, C_), 0)
+    jj = jax.lax.broadcasted_iota(jnp.int32, (C_, C_), 1)
+    dominates = near & (jj < ii)
+
+    def round_(carry):
+        alive, selected, n = carry
+        dominated = jnp.any(dominates & alive[None, :], axis=1)
+        winners = alive & ~dominated
+        selected = selected | winners
+        killed = jnp.any(near & winners[None, :], axis=1) & ~winners
+        return alive & ~winners & ~killed, selected, n + 1
+
+    def not_done(carry):
+        alive, _, n = carry
+        return jnp.any(alive) & (n < C_)
+
+    _, selected, n = jax.lax.while_loop(not_done, round_,
+                                        (alive, jnp.zeros_like(alive), jnp.int32(0)))
+    return selected, n
+
+
+SELECTION_CASES = [name for name, _, _, _ in cs.selection_cases(torch.float64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", range(len(SELECTION_CASES)), ids=SELECTION_CASES)
+def test_selection_edge_cases_match_reference_rounds(case, dtype):
+    """S1's edge cases (`chip_smoke.selection_cases`, which the card test of
+    the kernel reuses): the plain rounds loop equals the reference's
+    lax.while_loop rounds bit for bit, round count included, and the
+    sequential greedy selection."""
+    name, cand, alive, md = cs.selection_cases(dtype)[case]
+    sel = poisson.select_candidates(cand, alive, md)
+    rounds = poisson.LAST_ROUNDS
+    sel_j, n_j = _reference_rounds(jnp.asarray(cand.numpy()), jnp.asarray(alive.numpy()),
+                                   md * md)
+    assert_same(sel, sel_j, name)
+    assert rounds == int(n_j), (name, rounds, int(n_j))
+    assert_same(sel, _greedy(cand.numpy(), alive.numpy(), md), f"{name}: sequential greedy")
 
 
 def _candidates(rng, C, extent, dtype):

@@ -1,18 +1,30 @@
-"""The eigen-decomposition behind the device steps' triangulation
-(`pvio_torch/ops/eigh.py`, the custom op `pvio::sym_eig`, kernel E1 on the
-card) on the CPU: the plain version is `torch.linalg.eigh` itself, so the
-reference parity of the triangulation tests is untouched; here the op's
-dispatch, its vmap rule, that the window's triangulation goes through it,
-and its cost model. Tolerance: bit for bit (the CPU implementation is eigh
-on the same stack)."""
+"""The eigen-decompositions behind the device steps' triangulation and the
+marginalization (`pvio_torch/ops/eigh.py`, the custom op `pvio::sym_eig`:
+kernel E1 at 4x4 and kernel E2 at the marginalization's 15x15 and
+(F*15)-square matrices on the card) on the CPU: the plain version is
+`torch.linalg.eigh` itself, so the reference parity of the triangulation
+and marginalization tests is untouched; here the op's dispatch at every
+size its callers give it, its vmap rule, that the window's triangulation
+and the marginalization go through it, and its cost model. Tolerances: bit
+for bit against eigh (the CPU implementation is eigh on the same stack);
+the marginalization's prior through the op against the reference's, S^T S
+and S^T infovec within 1e-10 of their largest entry (eigh leaves the
+eigenvectors' signs and the basis inside the 15 zeroed dimensions free,
+and the two libraries' LAPACK calls round differently).
+"""
 
+import jax
 import numpy as np
 import pytest
 import torch
 from torch.func import vmap
 
+from pvio_tpu.estimation import marginalization as Jmarg
+from pvio_torch.estimation import marginalization as Tmarg
 from pvio_torch.map import window as win
 from pvio_torch.ops import eigh as eigh_op
+from tests.test_torch_factors_ba import ba_window, bacfg
+from tests.test_torch_harness import assert_rel, npy
 
 torch.set_num_threads(2)
 
@@ -22,7 +34,7 @@ def _spd(rng, B, n):
     return torch.as_tensor(J.transpose(0, 2, 1) @ J)
 
 
-@pytest.mark.parametrize("n", [eigh_op.N])
+@pytest.mark.parametrize("n", [eigh_op.N, 15, 105, 135])
 def test_op_is_eigh_on_cpu_and_vmaps(n):
     A = _spd(np.random.default_rng(n), 5, n)
     before = eigh_op.LAUNCHES
@@ -35,6 +47,56 @@ def test_op_is_eigh_on_cpu_and_vmaps(n):
     Ln, Vn = vmap(vmap(eigh_op.eigh))(A.reshape(5, 1, n, n))
     assert torch.equal(Ln.reshape(5, n), Lp) and torch.equal(Vn.reshape(5, n, n), Vp)
     assert eigh_op.LAUNCHES == before
+
+
+def _deficient(rng, B, n):
+    """B symmetric positive semi-definite n x n matrices with their last 15
+    rows and columns exactly zero, as after the marginalization's
+    `_shift_out` (at n = 15, the zero matrix)."""
+    A = _spd(rng, B, n).numpy()
+    A[:, -15:, :] = 0.0
+    A[:, :, -15:] = 0.0
+    return torch.as_tensor(A)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [15, 105, 135])
+def test_op_is_eigh_on_rank_deficient_matrices(n, dtype):
+    """The op's CPU path at E2's sizes on matrices with 15 zeroed rows and
+    columns (at n = 15 the zero matrix), one matrix and a vmapped stack of
+    3 (the priors of 3 sequences under `parallel.multi_seq.run_batched`),
+    equals torch.linalg.eigh and launches nothing."""
+    A = _deficient(np.random.default_rng(n), 3, n).to(dtype)
+    k1, k2 = eigh_op.LAUNCHES, sum(eigh_op.BLOCK_LAUNCHES.values())
+    Lp, Vp = torch.linalg.eigh(A)
+    L1, V1 = eigh_op.eigh(A[1])
+    assert L1.dtype == dtype and torch.equal(L1, Lp[1]) and torch.equal(V1, Vp[1])
+    Lv, Vv = vmap(eigh_op.eigh)(A)
+    assert torch.equal(Lv, Lp) and torch.equal(Vv, Vp)
+    assert (eigh_op.LAUNCHES, sum(eigh_op.BLOCK_LAUNCHES.values())) == (k1, k2)
+
+
+def test_marginalization_goes_through_the_op_and_matches_reference():
+    """marginalize_and_remove decomposes the 15x15 victim block and the
+    (F*15)-square prior through the op (one call each), and its prior
+    matches the reference's `marginalize_and_remove` at float64 on the
+    same window: S^T S and S^T infovec within 1e-10 relative."""
+    _, _, w, extr, _, wt, et = ba_window()
+    cj, ct = bacfg(False)
+    F = wt.kp.shape[0]
+    calls = []
+    real = eigh_op.eigh
+    eigh_op.eigh = lambda A: calls.append(tuple(A.shape)) or real(A)
+    try:
+        wmt = Tmarg.marginalize_and_remove(wt, et, ct, index=0)
+    finally:
+        eigh_op.eigh = real
+    assert calls == [(15, 15), (F * 15, F * 15)], calls
+    wmj = jax.jit(lambda w_: Jmarg.marginalize_and_remove(w_, extr, cj, index=0))(w)
+    S_t, iv_t = npy(wmt.prior.sqrt_info), npy(wmt.prior.infovec)
+    S_j, iv_j = np.asarray(wmj.prior.sqrt_info), np.asarray(wmj.prior.infovec)
+    assert_rel(S_t.T @ S_t, S_j.T @ S_j, 1e-10, "S^T S")
+    assert_rel(S_t.T @ iv_t, S_j.T @ iv_j, 1e-10, "S^T infovec")
 
 
 def test_window_triangulation_goes_through_the_op():
@@ -61,6 +123,28 @@ def test_window_triangulation_goes_through_the_op():
 def test_wrapper_refuses_cpu_tensors_and_counts_work():
     with pytest.raises(ValueError, match="CUDA"):
         eigh_op.sym_eig_cuda(torch.eye(4))
-    n_bytes, ops = eigh_op.cost(4, [3, 5])
+    with pytest.raises(ValueError, match="CUDA"):
+        eigh_op.sym_eig_cuda(torch.eye(135))
+    n_bytes, ops = eigh_op.cost(4, 2)
     assert n_bytes == 2 * (2 * 16 + 4) * 8
-    assert ops == 8 * eigh_op.flops_per_sweep(4) == 8 * 6 * (12 * 4 + 20)
+    assert ops == 2 * 9 * 4 ** 3
+    n_bytes, ops = eigh_op.cost(135, 11)
+    assert n_bytes == 11 * (2 * 135 ** 2 + 135) * 8
+    assert ops == 11 * 9 * 135 ** 3
+
+
+@pytest.mark.parametrize("window", [7, 9, 11])
+def test_card_engine_checks_its_window_against_e2(window):
+    """A CUDA engine refuses, when it is built, a window whose prior E2
+    cannot decompose (F * 15 > N_MAX); the check comes before any tensor
+    is made on the card, so it runs here."""
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.io.config import Config
+
+    cfg = Config(sliding_window_size=window - 1)
+    assert cfg.window_frame_capacity == window
+    if window * 15 <= eigh_op.N_MAX:
+        eigh_op.check_window(window)
+        return
+    with pytest.raises(ValueError, match="sliding_window_size is at most"):
+        DeviceKernels(cfg, device="cuda")
