@@ -31,9 +31,12 @@ Phases; each raises on failure, so any failure exits non-zero:
      loop bit for bit at float32 and float64 with the same round counts,
      and on its edge cases (`selection_cases`); kernel E1 (4x4 symmetric
      eigen-decompositions) on the window's DLT normal matrices and kernel
-     E2 (n x n, one block per matrix) on the marginalization's 15x15 and
-     (F*15)-square matrices and an MS_B stack of the latter, against
-     torch.linalg.eigh; each timed beside its plain version and its bound;
+     E2 (n x n: a warp per matrix up to 32, above it a thread block cluster
+     per matrix) on the marginalization's 15x15 and (F*15)-square matrices,
+     an MS_B stack of the latter and a 240x240 matrix (16 frame slots),
+     against torch.linalg.eigh, its sweeps beside its CPU model's
+     (`eigh_op.jacobi_model`); each timed beside its plain version and its
+     bound;
   3. the main path: the bench scene, first_frame_step, the slot -> track
      association, then N_FRAMES x (frame_step -> association -> pnp_step)
      chaining the tail pose, and every KF_EVERY-th frame ba_step
@@ -100,7 +103,8 @@ Phases; each raises on failure, so any failure exits non-zero:
      host waits once or twice per tick; ms per tick beside the two solo
      calls; then the stream served again under sync debug mode "warn"
      (so the timed run is not) for PyTorch's own synchronising calls per
-     tick, by kind of tick;
+     tick, by kind of tick: a tick that does not initialize may name no
+     site in ransac.py (fault F3, repaired);
   9. the kernel table (JSON; the single-image entries' launches are the
      planes-on sequential run's, the batched entries' the vmapped chain's),
      the total time, the nvidia-smi line and, last, the result.
@@ -129,6 +133,7 @@ KEY0 = (648, 1)                 # threefry key data of the first frame_step
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 FP64_FLOPS_PER_S = 34e12        # H100 SXM float64 outside the tensor cores, data sheet
+FP64_TC_FLOPS_PER_S = 67e12     # H100 SXM float64 on the tensor cores (E2's mixing), data sheet
 
 # K1 against its plain version: the kernel sums in another order in float32
 K1_REL_TOL, K1_ABS_TOL = 1e-6, 1e-9
@@ -547,7 +552,9 @@ def marg_cases(kern, w, host):
     block and the (F*15)-square prior), recorded from one
     `marg_step` on the bench window, and MS_B copies of the prior, each entry
     scaled by 1 + 1e-3 u with u a seeded symmetric uniform noise (its
-    zeroed slot stays zero), as the vmapped chain stacks them."""
+    zeroed slot stays zero), as the vmapped chain stacks them; last, the
+    prior's size at E2's largest window (16 frame slots, n = N_MAX = 240)
+    as a seeded rank-deficient `marg_like` matrix in the prior's dtype."""
     import torch
 
     from pvio_torch.ops import eigh as eigh_op
@@ -564,7 +571,23 @@ def marg_cases(kern, w, host):
     u = torch.rand(MS_B, n, n, generator=g, dtype=torch.float64) * 2.0 - 1.0
     u = ((u + u.transpose(-1, -2)) / 2.0).to(AP.device, AP.dtype)
     u[0] = 0.0
-    return {"15x15": A15, f"{n}x{n}": AP, f"{MS_B}x{n}x{n}": (AP * (1.0 + 1e-3 * u)).contiguous()}
+    big = torch.as_tensor(marg_like(np.random.default_rng(240), 1, eigh_op.N_MAX)[0],
+                          dtype=AP.dtype, device=AP.device)
+    return {"15x15": A15, f"{n}x{n}": AP, f"{MS_B}x{n}x{n}": (AP * (1.0 + 1e-3 * u)).contiguous(),
+            f"{eigh_op.N_MAX}x{eigh_op.N_MAX}": big}
+
+
+def marg_like(rng, B, n, zeroed=15):
+    """B symmetric positive semi-definite n x n matrices (float64 numpy)
+    shaped like the marginalization's: J^T J with column scales over three
+    decades, the last `zeroed` rows and columns exactly zero (the slot
+    `_shift_out` frees; none when zeroed = 0)."""
+    J = rng.normal(size=(B, 2 * n, n)) * 10.0 ** rng.uniform(0.0, 1.5, size=(B, 1, n))
+    A = J.transpose(0, 2, 1) @ J
+    if zeroed:
+        A[:, -zeroed:, :] = 0.0
+        A[:, :, -zeroed:] = 0.0
+    return A
 
 
 def eig_gap(A, L_k, V_k, L_p):
@@ -1421,7 +1444,8 @@ def main():
             f"torch.linalg.eigh device {t_plain:.6f} ms (+ its host read of the error codes), "
             f"bound {e1[key]['bound'][0]:.6f} ms ({e1[key]['bound'][1]})")
     # E2: the marginalization's two eigen-decompositions on the bench
-    # window (15x15, (F*15)-square) and a vmapped chain's stack of priors
+    # window (15x15, (F*15)-square), a vmapped chain's stack of priors and
+    # a prior of 16 frame slots; the sweeps beside its CPU model's
     e2 = {}
     for key, A in marg_cases(kern, to_device(w, dev), host).items():
         n = A.shape[-1]
@@ -1435,14 +1459,15 @@ def main():
         if not (err <= lim and max(sweeps) < eigh_op.MAX_SWEEPS):
             raise RuntimeError(f"E2 disagrees with torch.linalg.eigh on {key}: {err} > {lim}, "
                                f"or did not converge (sweeps {sweeps})")
+        model = [eigh_op.jacobi_model(a)[2] for a in A.double().cpu().reshape(-1, n, n)]
         t = device_ms(lambda: eigh_op.eigh(A), reps=10, warmup=2)
         t_plain = device_ms(lambda: torch.linalg.eigh(A), reps=10, warmup=2)
         nb, nops = eigh_op.cost(n, len(sweeps))  # in float64, from the input
-        tb, to = nb / HBM_BYTES_PER_S * 1e3, nops / FP64_FLOPS_PER_S * 1e3
+        tb, to = nb / HBM_BYTES_PER_S * 1e3, nops / FP64_TC_FLOPS_PER_S * 1e3
         e2[key] = dict(err=err, ms=t, plain_ms=t_plain,
                        bound=(tb, "bytes") if tb >= to else (to, "operations"))
         log(f"[2] E2 {key} {tuple(A.shape)} {A.dtype}: max gap to torch.linalg.eigh {err:.3e} "
-            f"(limit {lim:.3e}), sweeps {min(sweeps)}-{max(sweeps)}; device {t:.6f} ms/launch, "
+            f"(limit {lim:.3e}), sweeps {sweeps} (CPU model {model}); device {t:.6f} ms/launch, "
             f"torch.linalg.eigh device {t_plain:.6f} ms (+ its host read of the error codes), "
             f"bound {e2[key]['bound'][0]:.6f} ms ({e2[key]['bound'][1]}: {nb} B, {nops} flop)")
     torch.cuda.synchronize()
@@ -1714,6 +1739,10 @@ def main():
         f"{sv['serve_s']:.1f} s served vs {sv['solo_s']:.1f} s in the solo runs' calls; phase "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"[8]   their sites by kind of tick, {{file:line: calls}}: {sv['sites']}")
+    f3 = [(kind, site, calls) for kind, sites in sv["sites"].items() if kind != "init"
+          for site, calls in sites.items() if site.startswith("ransac.py:")]
+    if f3:
+        raise RuntimeError(f"find_plane still synchronises in served ticks (fault F3): {f3}")
 
     # 9. summary -----------------------------------------------------------------
     def entry(name, route, source, replaces, n, err, t, plain, bound, library=None):

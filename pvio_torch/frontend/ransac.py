@@ -135,8 +135,8 @@ def find_plane(key_data, points, mask, threshold=0.03, n_hyp=256):
     inls = (errs < threshold) & mask[None, :]
     counts = torch.where(norm > 1e-12, torch.sum(inls, dim=-1),
                          torch.full_like(norm, -1, dtype=torch.int64))
-    best = torch.argmax(counts)
-    return n[best], d[best], inls[best], counts[best]
+    best = torch.argmax(counts).reshape(1)                    # (1,): no host read
+    return n[best][0], d[best][0], inls[best][0], counts[best][0]
 
 
 def refine_plane_pca(points, inlier_mask):

@@ -783,19 +783,6 @@ def test_vmapped_frame_step_launches_k1_and_s1_once():
         assert float((o1[2] - out[2][b])[both].abs().max()) <= 1e-3
 
 
-def _marg_like(rng, B, n, zeroed=15):
-    """B symmetric positive semi-definite n x n matrices shaped like the
-    marginalization's: J^T J with column scales over three decades, the
-    last `zeroed` rows and columns exactly zero (the slot `_shift_out`
-    frees; none when zeroed = 0)."""
-    J = rng.normal(size=(B, 2 * n, n)) * 10.0 ** rng.uniform(0.0, 1.5, size=(B, 1, n))
-    A = J.transpose(0, 2, 1) @ J
-    if zeroed:
-        A[:, -zeroed:, :] = 0.0
-        A[:, :, -zeroed:] = 0.0
-    return A
-
-
 # E2 against torch.linalg.eigh at the same dtype: the eigenpairs within
 # chip_smoke.eig_gap's limit (at float32 1e-5 of the largest eigenvalue,
 # or 16 n unit roundoffs for n > 10; at float64 1e-12), V diag(L) V^T
@@ -812,12 +799,17 @@ E2_STS_REL_F64 = 1e-12
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [15, 105, 135])
+@pytest.mark.parametrize("n", [15, 30, 60, 90, 105, 135, 150, 180, 210, 240])
 def test_sym_eig_block_matches_eigh_on_card(n, dtype):
-    """Kernel E2 at the marginalization's sizes (15: the victim block;
-    105 and 135: the (F*15)-square prior at F = 7 and 9), one matrix and a
-    vmapped stack of 11 in one launch, against torch.linalg.eigh; it
-    converges within its sweep limit."""
+    """Kernel E2 at the marginalization's sizes, every form and cluster
+    width its launch picks: 15 (the victim block) and 30 (the prior at
+    F = 2), the small form padded to 16 and to 32; 60, 90, 105, 135, 150,
+    180, 210 and 240, the (F*15)-square prior at F = 4 to 16, the blocked
+    form on clusters of 2, 3, 4, 5, 5, 6, 7 and 8 CTAs (A's rows exchanged
+    through a second buffer up to 210, through registers at 240). One
+    matrix and a vmapped stack of 11 in one launch, against
+    torch.linalg.eigh; it converges within its sweep limit, and refuses
+    n = N_MAX + 1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from torch.func import vmap
@@ -827,9 +819,9 @@ def test_sym_eig_block_matches_eigh_on_card(n, dtype):
     from pvio_torch.ops import eigh as eigh_op
 
     rng = np.random.default_rng(n)
-    full = torch.as_tensor(_marg_like(rng, 11, n, zeroed=0), dtype=dtype, device="cuda")
-    deficient = torch.as_tensor(_marg_like(rng, 11, n, zeroed=15 if n > 15 else 5), dtype=dtype,
-                                device="cuda")
+    full = torch.as_tensor(cs.marg_like(rng, 11, n, zeroed=0), dtype=dtype, device="cuda")
+    deficient = torch.as_tensor(cs.marg_like(rng, 11, n, zeroed=15 if n > 15 else 5),
+                                dtype=dtype, device="cuda")
     for A in (full, deficient):
         L_p, _ = torch.linalg.eigh(A)
         before = eigh_op.BLOCK_LAUNCHES[n]
@@ -857,6 +849,116 @@ def test_sym_eig_block_matches_eigh_on_card(n, dtype):
             assert rel <= (E2_STS_REL_F64 if dtype == torch.float64 else lim), rel
     with pytest.raises(ValueError):
         eigh_op.sym_eig_cuda(torch.eye(eigh_op.N_MAX + 1, dtype=dtype, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_sym_eig_block_sweeps_match_model_on_card():
+    """On the two matrices one marg_step of the bench window (Config()'s 9
+    frame slots, float32, 320x240) decomposes on the card, E2's sweep count
+    lies within one of its CPU model's (`eigh_op.jacobi_model`, the same
+    algorithm in float64 PyTorch; summation order and FMA contraction
+    differ), and both match torch.linalg.eigh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.io.config import Config
+    from pvio_torch.ops import eigh as eigh_op
+
+    cfg = Config(camera_intrinsic=np.array([200.0, 200.0, 160.0, 120.0]), image_size=(320, 240))
+    cfg.dtype = "float32"
+    cfg.enable_plane_constraint = True
+    kern = DeviceKernels(cfg)
+    w, host = cs.bench_inputs(cfg, 1)
+    cases = cs.marg_cases(kern, cs.to_device(w, kern.device), host)
+    n_prior = cfg.window_frame_capacity * 15
+    for key in ("15x15", f"{n_prior}x{n_prior}"):
+        A = cases[key].double()
+        A = torch.tril(A) + torch.tril(A, -1).mT
+        L, V = eigh_op.eigh(A)
+        sweeps = int(eigh_op.LAST_SWEEPS[0])
+        L_m, V_m, sweeps_m = eigh_op.jacobi_model(A.cpu())
+        L_p = torch.linalg.eigh(A)[0]
+        print(f"E2 on the recorded {key}: {sweeps} sweeps, its CPU model {sweeps_m}")
+        assert abs(sweeps - sweeps_m) <= 1 and sweeps < eigh_op.MAX_SWEEPS, (key, sweeps, sweeps_m)
+        gap, lim = cs.eig_gap(A, L, V, L_p)
+        gap_m, _ = cs.eig_gap(A.cpu(), L_m, V_m, L_p.cpu())
+        assert gap <= lim and gap_m <= lim, (key, gap, gap_m, lim)
+
+
+# the card's and the CPU's marginalization at 16 frame slots, float64: the
+# prior's S^T S and S^T infovec within 1e-8 relative (kf_step's float64
+# bar). E2 against eigh alone moves them 2.0e-12 on the CPU (jacobi_model
+# in eigh's place on this window); the rest is the device's rounding of the
+# Schur complement, which the clamped pseudo-inverse amplifies.
+MARG16_PRIOR_REL_F64 = 1e-8
+
+
+@pytest.mark.cuda
+def test_card_engine_with_16_frame_slots_marginalizes():
+    """sliding_window_size 15 (16 frame slots, n = 240: E2's largest
+    blocked form, 8 CTAs) builds on the card and its marg_step matches the
+    CPU's; 17 slots raise when the engine is built."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.io import synthetic as TS
+    from pvio_torch.ops import eigh as eigh_op
+
+    cfg = _small_config()
+    cfg.sliding_window_size, cfg.window_frame_capacity, cfg.dtype = 15, 16, "float64"
+    scene = TS.make_scene(duration=4.0, n_points=200, n_plane_points=80, seed=648)
+    kf = list(range(0, 60, 4))
+    w, _, _ = TS.solver_window_from_scene(scene, kf, F_cap=16, T_cap=96, dtype=torch.float64,
+                                          kp_noise=0.002)
+    grids = cs.imu_grids(scene, kf, 16, 64)
+    before = eigh_op.BLOCK_LAUNCHES[240]
+    card = DeviceKernels(cfg).marg_step(cs.to_device(w, torch.device("cuda")), *grids)
+    torch.cuda.synchronize()
+    assert eigh_op.BLOCK_LAUNCHES[240] == before + 1
+    assert int(eigh_op.LAST_SWEEPS[0]) < eigh_op.MAX_SWEEPS
+    cpu = DeviceKernels(cfg, device="cpu").marg_step(w, *grids)
+    rel = _prior_rel(card.prior, cpu.prior)
+    dp = float((card.p.cpu() - cpu.p).abs().max())
+    print(f"marg_step at 16 frame slots, card vs CPU float64: prior rel {rel:.3e}, |dp| {dp:.3e}")
+    assert rel <= MARG16_PRIOR_REL_F64 and dp == 0.0, (rel, dp)
+    cfg.sliding_window_size, cfg.window_frame_capacity = 16, 17
+    with pytest.raises(ValueError, match="sliding_window_size is at most 15"):
+        DeviceKernels(cfg)
+
+
+@pytest.mark.cuda
+def test_find_plane_on_card_makes_no_host_wait():
+    """ransac.find_plane (the plane extractor's device RANSAC) on device
+    inputs runs under torch.cuda.set_sync_debug_mode("error") after one
+    warm-up call, and equals its CPU result: the same inlier mask and
+    count, the plane within 1e-12 (float64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pvio_torch.frontend import ransac
+    from pvio_torch.utils import threefry
+
+    rng = np.random.default_rng(0)
+    N = 97
+    pts = rng.normal(size=(N, 3)) * [2.0, 1.5, 0.01] + [0.3, -0.2, 4.6]
+    pts[60:] = rng.normal(size=(N - 60, 3)) * 2.0 + [0.0, 0.0, 3.0]
+    mask = rng.uniform(size=N) < 0.9
+    key = torch.as_tensor(threefry.split(threefry.PRNGKey(648))[1].astype(np.int64))
+    args = (key, torch.as_tensor(pts), torch.as_tensor(mask))
+    want = ransac.find_plane(*args)
+    dev = [a.cuda() for a in args]
+    ransac.find_plane(*dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ransac.find_plane(*dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n, d, inl, cnt = (x.cpu() for x in got)
+    assert n.shape == (3,) and d.dim() == cnt.dim() == 0 and inl.shape == (N,)
+    assert torch.equal(inl, want[2]) and int(cnt) == int(want[3]) > 40
+    assert float((n - want[0]).abs().max()) <= 1e-12 and abs(float(d - want[1])) <= 1e-12
 
 
 @pytest.mark.cuda

@@ -10,7 +10,11 @@ for bit against eigh (the CPU implementation is eigh on the same stack);
 the marginalization's prior through the op against the reference's, S^T S
 and S^T infovec within 1e-10 of their largest entry (eigh leaves the
 eigenvectors' signs and the basis inside the 15 zeroed dimensions free,
-and the two libraries' LAPACK calls round differently).
+and the two libraries' LAPACK calls round differently). Then E2's
+algorithm itself, `eigh_op.jacobi_model`, which the card tests hold the
+kernel's sweep count to: against eigh within chip_smoke.eig_gap's float64
+limit at E2's sizes, on matrices one marg_step records, and in the
+marginalization against the reference's.
 """
 
 import jax
@@ -133,11 +137,11 @@ def test_wrapper_refuses_cpu_tensors_and_counts_work():
     assert ops == 11 * 9 * 135 ** 3
 
 
-@pytest.mark.parametrize("window", [7, 9, 11])
+@pytest.mark.parametrize("window", [7, 9, 11, 16, 17])
 def test_card_engine_checks_its_window_against_e2(window):
     """A CUDA engine refuses, when it is built, a window whose prior E2
-    cannot decompose (F * 15 > N_MAX); the check comes before any tensor
-    is made on the card, so it runs here."""
+    cannot decompose (F * 15 > N_MAX = 240: more than 16 frame slots); the
+    check comes before any tensor is made on the card, so it runs here."""
     from pvio_torch.core.kernels import DeviceKernels
     from pvio_torch.io.config import Config
 
@@ -148,3 +152,93 @@ def test_card_engine_checks_its_window_against_e2(window):
         return
     with pytest.raises(ValueError, match="sliding_window_size is at most"):
         DeviceKernels(cfg, device="cuda")
+
+
+# E2's algorithm on the CPU (`eigh_op.jacobi_model`: the small form up to
+# WARP_N, the blocked form over tiles of TILE rows above it) against
+# torch.linalg.eigh, within chip_smoke.eig_gap's float64 limit (1e-12 of
+# the largest eigenvalue: eigenvalue gap, residual, orthonormality).
+
+
+@pytest.mark.parametrize("zeroed", [0, 15])
+@pytest.mark.parametrize("n", [15, 30, 60, 90, 105, 135, 150, 180, 210, 240])
+def test_jacobi_model_is_eigh(n, zeroed):
+    """Full-rank and rank-deficient marginalization-like matrices (the last
+    15 rows and columns zero; at n <= 30, the last 5) at the sizes E2 takes:
+    the 15x15 victim block, the prior at F = 2 (both in the small form, at
+    its two paddings, 16 and 32) and at F = 4, 6, 7, 9, 10, 12, 14 and 16
+    (the blocked form on clusters of 2 to 8 CTAs)."""
+    import chip_smoke as cs
+
+    z = zeroed if n > 30 else zeroed // 3
+    A = torch.as_tensor(cs.marg_like(np.random.default_rng(n + zeroed), 1, n, z)[0])
+    L, V, sweeps = eigh_op.jacobi_model(A)
+    gap, lim = cs.eig_gap(A, L, V, torch.linalg.eigh(A)[0])
+    assert gap <= lim, (gap, lim)
+    assert 0 < sweeps < eigh_op.MAX_SWEEPS
+
+
+def test_jacobi_model_one_block_is_eigh():
+    """The earlier one-block kernel's scalar round-robin ordering over the
+    whole matrix (`one_block`, which time_e2.py --facade-check compares
+    with the blocked one), at n = 135 on a rank-deficient
+    marginalization-like matrix: eigh within eig_gap's float64 limit below
+    MAX_SWEEPS."""
+    import chip_smoke as cs
+
+    A = torch.as_tensor(cs.marg_like(np.random.default_rng(135), 1, 135)[0])
+    L, V, sweeps = eigh_op.jacobi_model(A, one_block=True)
+    gap, lim = cs.eig_gap(A, L, V, torch.linalg.eigh(A)[0])
+    assert gap <= lim and 0 < sweeps < eigh_op.MAX_SWEEPS, (gap, sweeps)
+
+
+def test_jacobi_model_converges_on_recorded_marginalization():
+    """The two matrices one marg_step of the bench window (Config()'s 9
+    frame slots, float32, at 320x240) decomposes, recorded as chip_smoke's
+    phase 2 records them: the model converges below MAX_SWEEPS and matches
+    eigh on each (the prior's float32 Schur complement is not exactly
+    symmetric, so both read its lower triangle)."""
+    import chip_smoke as cs
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.io.config import Config
+
+    cfg = Config(camera_intrinsic=np.array([200.0, 200.0, 160.0, 120.0]), image_size=(320, 240))
+    cfg.dtype = "float32"
+    cfg.enable_plane_constraint = True
+    kern = DeviceKernels(cfg, device="cpu")
+    w, host = cs.bench_inputs(cfg, 1)
+    cases = cs.marg_cases(kern, w, host)
+    n_prior = cfg.window_frame_capacity * 15
+    for key in ("15x15", f"{n_prior}x{n_prior}"):
+        A = cases[key].double()
+        A = torch.tril(A) + torch.tril(A, -1).mT
+        L, V, sweeps = eigh_op.jacobi_model(A)
+        gap, lim = cs.eig_gap(A, L, V, torch.linalg.eigh(A)[0])
+        assert gap <= lim and 0 < sweeps < eigh_op.MAX_SWEEPS, (key, gap, sweeps)
+
+
+def test_marginalization_through_the_model_matches_reference():
+    """marginalize_and_remove with jacobi_model in the op's place (both of
+    its decompositions) matches the reference's marginalize_and_remove at
+    float64, as test_marginalization_goes_through_the_op_and_matches_reference
+    holds the op: S^T S and S^T infovec within 1e-10 relative."""
+    _, _, w, extr, _, wt, et = ba_window()
+    cj, ct = bacfg(False)
+    real, sizes = eigh_op.eigh, []
+
+    def model(A):
+        sizes.append(A.shape[-1])
+        L, V, _ = eigh_op.jacobi_model(A)
+        return L.to(A.dtype), V.to(A.dtype)
+
+    eigh_op.eigh = model
+    try:
+        wmt = Tmarg.marginalize_and_remove(wt, et, ct, index=0)
+    finally:
+        eigh_op.eigh = real
+    assert sizes == [15, wt.kp.shape[0] * 15]
+    wmj = jax.jit(lambda w_: Jmarg.marginalize_and_remove(w_, extr, cj, index=0))(w)
+    S_t, iv_t = npy(wmt.prior.sqrt_info), npy(wmt.prior.infovec)
+    S_j, iv_j = np.asarray(wmj.prior.sqrt_info), np.asarray(wmj.prior.infovec)
+    assert_rel(S_t.T @ S_t, S_j.T @ S_j, 1e-10, "S^T S")
+    assert_rel(S_t.T @ iv_t, S_j.T @ iv_j, 1e-10, "S^T infovec")
