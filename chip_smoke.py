@@ -30,13 +30,15 @@ Phases; each raises on failure, so any failure exits non-zero:
      their candidates, one image and the stack, equal to the plain rounds
      loop bit for bit at float32 and float64 with the same round counts,
      and on its edge cases (`selection_cases`); kernel E1 (4x4 symmetric
-     eigen-decompositions) on the window's DLT normal matrices and kernel
-     E2 (n x n: a warp per matrix up to 32, above it a thread block cluster
-     per matrix) on the marginalization's 15x15 and (F*15)-square matrices,
-     an MS_B stack of the latter and a 240x240 matrix (16 frame slots),
-     against torch.linalg.eigh, its sweeps beside its CPU model's
-     (`eigh_op.jacobi_model`); each timed beside its plain version and its
-     bound;
+     eigen-decompositions, a quad of lanes per matrix) on the window's DLT
+     normal matrices and an MS_B stack of them, in their float32, one kernel
+     per call in the profiler trace, its sweeps equal to its CPU model's
+     (`eigh_op.jacobi_model`) on every matrix; kernel E2 (n x n: a warp per
+     matrix up to 32, above it a thread block cluster per matrix) on the
+     marginalization's 15x15 and (F*15)-square matrices, an MS_B stack of
+     the latter and a 240x240 matrix (16 frame slots), its sweeps beside
+     its CPU model's; each against torch.linalg.eigh, timed beside it, its
+     bound and the launch floor;
   3. the main path: the bench scene, first_frame_step, the slot -> track
      association, then N_FRAMES x (frame_step -> association -> pnp_step)
      chaining the tail pose, and every KF_EVERY-th frame ba_step
@@ -91,11 +93,12 @@ Phases; each raises on failure, so any failure exits non-zero:
      one TUM line per pose it reports, finite poses and its printed ATE
      under CLI_MAX_ATE_M;
   7. the multi-sequence chain at Config()'s size, planes on: MS_B
-     sequences through one vmapped chain, K1 and S1 launched once per frame
-     (counts zeroed just before, read just after), the sequences MS_CHECK
-     unbatched against their batched results within MAX_MS_COST_REL /
-     MAX_MS_DP_M, and ms per group batched at B = 1, 4 and MS_B beside B
-     unbatched chains;
+     sequences through one vmapped chain, K1 and S1 launched once per frame,
+     E1 at least once per motion step and E2 once at each size per
+     marginalization (counts zeroed just before, read just after), the
+     sequences MS_CHECK unbatched against their batched results within
+     MAX_MS_COST_REL / MAX_MS_DP_M, and ms per group batched at B = 1, 4
+     and MS_B beside B unbatched chains;
   8. serving: two PVIO engines (planes on) behind one MultiSequenceServer
      on the first SERVE_FRAMES frames, engine 0 the phase-6 stream held to
      phase 6's sequential run, engine 1 the SERVE_SEED room stream held to
@@ -113,6 +116,7 @@ Exits non-zero, printing no result, when CUDA is not available or the
 port's package is not beside this script.
 """
 
+import collections
 import itertools
 import json
 import os
@@ -233,25 +237,89 @@ def cuda_ms(fn, reps=60, warmup=5):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=60, warmup=5):
-    """Mean device time of fn() in milliseconds: the durations of the CUDA
-    kernels it launches, summed over a torch.profiler trace of `reps`
-    calls. Raises when the trace holds no CUDA kernel: then nothing of fn
-    was seen on the device, and a host-clock time would hide that."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+TRACE_PAD = 4          # kernels of a trace's own at each end of it
+TRACE_PAD_S = 0.002    # the host's wait between them and the calls
 
+
+def profile_calls(fn, reps=60, warmup=5, pad=True):
+    """A torch.profiler trace of `reps` calls of fn() (after `warmup` calls
+    outside it) inside a "trace calls" range. With `pad`, TRACE_PAD
+    1-element kernels of the trace's own run before the calls and after
+    them, each group TRACE_PAD_S of host time away from the calls, so that
+    the events a trace loses at its start are theirs (once the process has
+    spent seconds on the host, PERF.md §6). Returns the
+    (name, microseconds) of the CUDA kernels in start order: the calls'
+    (those that start within TRACE_PAD_S / 2 of the range), the pad
+    kernels before them and those after them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    buf = torch.zeros(1, device="cuda")
+    n_pad = TRACE_PAD if pad else 0
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        for _ in range(n_pad):
+            buf.add_(1.0)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if pad:
+            time.sleep(TRACE_PAD_S)
+        with record_function("trace calls"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        if pad:
+            time.sleep(TRACE_PAD_S)
+        for _ in range(n_pad):
+            buf.add_(1.0)
+        torch.cuda.synchronize()
+    events = prof.events()
+    rng = next(e.time_range for e in events if e.name == "trace calls")
+    margin = 1e6 * TRACE_PAD_S / 2 if pad else float("inf")
+    parts = ([], [], [])                      # calls, before, after
+    for t0, us, name in sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                               for e in events
+                               if e.device_type == torch.autograd.DeviceType.CUDA
+                               and not getattr(e, "is_user_annotation", False)):
+        part = 1 if t0 < rng.start - margin else 2 if t0 > rng.end + margin else 0
+        parts[part].append((name, us))
+    return parts
+
+
+def trace_kernels(fn, reps=60, warmup=5):
+    """The CUDA kernels of `reps` calls of fn() in a torch.profiler trace,
+    as (name, microseconds) in start order (`profile_calls`, padded at
+    both ends: a trace has lost kernel events at its start, PERF.md §6,
+    `time_eig.py --trace-check`). Raises when the trace holds no CUDA
+    kernel of the calls: then nothing of fn was seen on the device, and a
+    host-clock time would hide that."""
+    kernels, _, _ = profile_calls(fn, reps, warmup)
     if not kernels:
-        raise RuntimeError("device_ms: the profiler trace holds no CUDA kernel")
-    return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
+        raise RuntimeError("trace_kernels: the profiler trace holds no CUDA kernel")
+    return kernels
+
+
+def device_ms(fn, reps=60, warmup=5, kernel=None, count=None, alone=False):
+    """Mean device time of fn() in milliseconds: the durations of the CUDA
+    kernels it launches, summed over a torch.profiler trace of `reps`
+    calls (`trace_kernels`), over reps. For a wrapper of one of the port's
+    kernels, `kernel` is a part of that kernel's name and `count()` reads
+    the wrapper's launch count: it raises unless the wrapper counted
+    warmup + reps launches and the trace holds the kernel exactly reps
+    times (and, with `alone`, no other kernel), so that a reading is never
+    low by an event the trace lost."""
+    before = count() if count else None
+    events = trace_kernels(fn, reps, warmup)
+    if kernel is not None:
+        seen = sum(kernel in name for name, _ in events)
+        launched = count() - before
+        if seen != reps or launched != warmup + reps or (alone and len(events) != seen):
+            raise RuntimeError(
+                f"device_ms: {warmup + reps} calls launched {kernel} {launched} times; the trace "
+                f"of {reps} holds it {seen} times among {len(events)} kernels "
+                f"{sorted({name[:60] for name, _ in events})}")
+    return sum(us for _, us in events) / reps / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -529,9 +597,11 @@ def selection_cases(dtype, seed=648):
 
 
 def eig_cases(kern, w):
-    """E1's input at the main path's shape: the DLT normal matrices A^T A
+    """E1's inputs at the main path's shapes: the DLT normal matrices A^T A
     (T, 4, 4) of every track of the window, as `window.triangulate_tracks`
-    forms them."""
+    forms them, and MS_B copies of them, each entry scaled by 1 + 1e-3 u
+    with u a seeded symmetric uniform noise (the first copy unscaled), as
+    the vmapped chain stacks them (`marg_cases` perturbs E2's stack so)."""
     import torch
 
     from pvio_torch.geometry import lie, triangulation
@@ -543,7 +613,13 @@ def eig_cases(kern, w):
     obs = (w.obs_mask & w.frame_mask[:, None]).T
     rows = triangulation._dlt_rows(Ps[None], w.kp.transpose(0, 1)) * obs[..., None, None]
     A = rows.reshape(rows.shape[0], -1, 4)
-    return {"4x4": (A.transpose(-1, -2) @ A).contiguous()}
+    A = (A.transpose(-1, -2) @ A).contiguous()
+    T = A.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(648)
+    u = torch.rand(MS_B, T, 4, 4, generator=g, dtype=torch.float64) * 2.0 - 1.0
+    u = ((u + u.transpose(-1, -2)) / 2.0).to(A.device, A.dtype)
+    u[0] = 0.0
+    return {"4x4": A, f"{MS_B}x{T}x4x4": (A * (1.0 + 1e-3 * u)).contiguous()}
 
 
 def marg_cases(kern, w, host):
@@ -588,6 +664,19 @@ def marg_like(rng, B, n, zeroed=15):
         A[:, -zeroed:, :] = 0.0
         A[:, :, -zeroed:] = 0.0
     return A
+
+
+def dlt_normals(B):
+    """B 4x4 DLT normal matrices A^T A of 8 rows each (float64 numpy, seed
+    15): of max(B, 8) drawn, every 4th from the first all zero (an empty
+    track column), every 4th from the second with its last column scaled by
+    1e-3 (poorly conditioned); the last B of them (B = 256: E1's first card
+    test's matrices; B = 1: a full-rank one)."""
+    rng = np.random.default_rng(15)
+    rows = rng.normal(size=(max(B, 8), 8, 4))
+    rows[::4] = 0.0
+    rows[1::4, :, 3] *= 1e-3
+    return (rows.transpose(0, 2, 1) @ rows)[-B:]
 
 
 def eig_gap(A, L_k, V_k, L_p):
@@ -988,8 +1077,10 @@ def state_ms(calls):
 
 def multi_seq_phase(cfg):
     """`parallel.multi_seq` at the config's size: MS_B sequences through
-    one vmapped chain with K1's and S1's counts zeroed just before and read
-    just after (each must have launched once per frame, not per sequence),
+    one vmapped chain with the kernels' counts zeroed just before and read
+    just after (K1 and S1 must have launched once per frame, not per
+    sequence, E1 at least once per motion step, E2 once at each size per
+    marginalization),
     the sequences MS_CHECK unbatched against their batched results, and the
     batched chain's time per group at B = 1, 4 and MS_B beside B unbatched
     chains' (B times the mean unbatched chain measured here). Raises on any
@@ -1016,14 +1107,18 @@ def multi_seq_phase(cfg):
         torch.cuda.synchronize()
         return out, 1e3 * (time.perf_counter() - t0)
 
-    stencil.LAUNCHES = poisson.LAUNCHES = 0
+    stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
     eigh_op.BLOCK_LAUNCHES.clear()
     (costs_b, wfs), ms_full = batched(MS_B)
     launches = {"shi_tomasi_batched": stencil.LAUNCHES, "poisson_select_batched": poisson.LAUNCHES}
-    e2 = dict(eigh_op.BLOCK_LAUNCHES)
+    e1, e2 = eigh_op.LAUNCHES, dict(eigh_op.BLOCK_LAUNCHES)
     if set(launches.values()) != {n_frames + 1}:
         raise RuntimeError(f"the vmapped chain of {n_frames + 1} frames launched {launches} "
                            "(want one launch of each kernel per frame)")
+    if e1 < n_frames:
+        raise RuntimeError(f"the vmapped chain's {n_frames} motion steps launched E1 {e1} times "
+                           "(want at least one launch per motion step)")
+    launches["sym_eig_batched"] = e1
     n_prior = cfg.window_frame_capacity * 15
     if e2 != {15: MS_GROUPS, n_prior: MS_GROUPS}:
         raise RuntimeError(f"the vmapped chain's {MS_GROUPS} marginalizations launched E2 {e2} "
@@ -1316,7 +1411,9 @@ def main():
         raise RuntimeError(f"detections from K1 and plain responses differ (max {dxy} px)")
     log(f"[2] detections from K1 / plain responses: {int(m_k.sum())} identical keypoints "
         f"(max |dxy| {dxy:.2e} px)")
-    k1_ms = device_ms(lambda: stencil.shi_tomasi_response(img0))
+    k1_count = lambda: stencil.LAUNCHES  # noqa: E731
+    k1_ms = device_ms(lambda: stencil.shi_tomasi_response(img0), kernel="shi_tomasi_kernel",
+                      count=k1_count)
     one = torch.empty(1, device=dev)
     floor_ms = device_ms(lambda: one.zero_())
     floor_call_ms = cuda_ms(lambda: one.zero_())
@@ -1352,7 +1449,8 @@ def main():
         if not err <= K1_REL_TOL * float(ref.abs().max()) + K1_ABS_TOL:
             raise RuntimeError(f"batched K1 disagrees with its plain version on image {b}: {err}")
         k1b_err = max(k1b_err, err)
-    k1b_ms = device_ms(lambda: stencil.shi_tomasi_response(stack))
+    k1b_ms = device_ms(lambda: stencil.shi_tomasi_response(stack), kernel="shi_tomasi_kernel",
+                       count=k1_count)
     k1b_plain_ms = device_ms(lambda: vmap(detect.shi_tomasi_response)(stack))
     k1b_call_ms = cuda_ms(lambda: stencil.shi_tomasi_response(stack))
     nbytes, nflops = stencil.cost(H, W, MS_B)
@@ -1389,8 +1487,11 @@ def main():
                                                                  md)).sum())
     if s1_diff:
         raise RuntimeError(f"S1 differs from its plain version in {s1_diff} entries")
-    s1_ms = device_ms(lambda: poisson.select_candidates(cand_b[0], alive_b[0], md))
-    s1b_ms = device_ms(lambda: poisson.select_candidates(cand_b, alive_b, md))
+    s1_count = lambda: poisson.LAUNCHES  # noqa: E731
+    s1_ms = device_ms(lambda: poisson.select_candidates(cand_b[0], alive_b[0], md),
+                      kernel="poisson_select_kernel", count=s1_count)
+    s1b_ms = device_ms(lambda: poisson.select_candidates(cand_b, alive_b, md),
+                       kernel="poisson_select_kernel", count=s1_count)
     s1_plain_ms = device_ms(lambda: poisson.select_candidates_plain(cand_b[0], alive_b[0], md),
                             reps=20)
     s1b_plain_ms = device_ms(lambda: [poisson.select_candidates_plain(c, a, md)
@@ -1420,29 +1521,43 @@ def main():
     log(f"[2] S1 == the plain rounds loop bit for bit, rounds included, on {n_cases} edge cases "
         f"(selection_cases at float32 and float64)")
     # E1: the eigen-decompositions of the triangulation (one 4x4 normal
-    # matrix per track of the bench window)
-    e1_cases = eig_cases(kern, to_device(w, dev))
+    # matrix per track of the bench window) and the vmapped chain's stack
+    # of them; the sweeps of every matrix equal to its CPU model's
     e1 = {}
-    for key, A in e1_cases.items():
+    for key, A in eig_cases(kern, to_device(w, dev)).items():
         before = eigh_op.LAUNCHES
         L_k, V_k = eigh_op.eigh(A)
         sweeps = eigh_op.LAST_SWEEPS.tolist()
         if eigh_op.LAUNCHES != before + 1:
             raise RuntimeError(f"E1 did not launch once for {key}")
+        if not L_k.dtype == V_k.dtype == A.dtype:
+            raise RuntimeError(f"E1 returned {L_k.dtype} / {V_k.dtype} for {A.dtype} input")
         L_p, _ = torch.linalg.eigh(A)
         err, lim = eig_gap(A, L_k, V_k, L_p)
         if not err <= lim:
             raise RuntimeError(f"E1 disagrees with torch.linalg.eigh on {key}: {err} > {lim}")
-        t = device_ms(lambda: eigh_op.eigh(A))
+        model = [eigh_op.jacobi_model(a)[2] for a in A.double().cpu().reshape(-1, 4, 4)]
+        if sweeps != model:
+            off = [(i, s_, m) for i, (s_, m) in enumerate(zip(sweeps, model)) if s_ != m]
+            raise RuntimeError(f"E1's sweeps differ from its CPU model's on {len(off)} of "
+                               f"{len(model)} matrices of {key} (index, kernel, model): {off[:10]}")
+        # one kernel a call: E1's alone in the trace, once for each launch
+        t = device_ms(lambda: eigh_op.eigh(A), kernel="sym_eig_kernel",
+                      count=lambda: eigh_op.LAUNCHES, alone=True)
         t_plain = device_ms(lambda: torch.linalg.eigh(A), reps=20)
-        nb, nops = eigh_op.cost(A.shape[-1], len(sweeps))  # in float64, from the input
+        # at the caller's dtype, which the kernel reads and writes; from the input
+        nb, nops = eigh_op.cost(4, len(sweeps), itemsize=A.element_size())
         tb, to = nb / HBM_BYTES_PER_S * 1e3, nops / FP64_FLOPS_PER_S * 1e3
         e1[key] = dict(err=err, ms=t, plain_ms=t_plain,
                        bound=(tb, "bytes") if tb >= to else (to, "operations"))
-        log(f"[2] E1 {key} {tuple(A.shape)}: max gap to torch.linalg.eigh {err:.3e} (limit "
-            f"{lim:.3e}), sweeps {min(sweeps)}-{max(sweeps)}; device {t:.6f} ms/launch, "
-            f"torch.linalg.eigh device {t_plain:.6f} ms (+ its host read of the error codes), "
-            f"bound {e1[key]['bound'][0]:.6f} ms ({e1[key]['bound'][1]})")
+        hist = dict(sorted(collections.Counter(sweeps).items()))
+        log(f"[2] E1 {key} {tuple(A.shape)} {A.dtype}: max gap to torch.linalg.eigh {err:.3e} "
+            f"(limit {lim:.3e}); sweeps {{sweeps: matrices}} {hist}, equal to the CPU model's on "
+            f"all {len(model)}; device {t:.6f} ms a call in one kernel, "
+            f"torch.linalg.eigh device {t_plain:.6f} ms (+ its "
+            f"host read of the error codes), bound {e1[key]['bound'][0]:.6f} ms "
+            f"({e1[key]['bound'][1]}: {nb} B at the input's {A.element_size()} B an entry, {nops} "
+            f"flop), launch floor {floor_ms:.6f} ms")
     # E2: the marginalization's two eigen-decompositions on the bench
     # window (15x15, (F*15)-square), a vmapped chain's stack of priors and
     # a prior of 16 frame slots; the sweeps beside its CPU model's
@@ -1460,7 +1575,9 @@ def main():
             raise RuntimeError(f"E2 disagrees with torch.linalg.eigh on {key}: {err} > {lim}, "
                                f"or did not converge (sweeps {sweeps})")
         model = [eigh_op.jacobi_model(a)[2] for a in A.double().cpu().reshape(-1, n, n)]
-        t = device_ms(lambda: eigh_op.eigh(A), reps=10, warmup=2)
+        t = device_ms(lambda: eigh_op.eigh(A), reps=10, warmup=2,
+                      kernel="small_kernel" if n <= eigh_op.WARP_N else "cluster_kernel",
+                      count=lambda: eigh_op.BLOCK_LAUNCHES[n])
         t_plain = device_ms(lambda: torch.linalg.eigh(A), reps=10, warmup=2)
         nb, nops = eigh_op.cost(n, len(sweeps))  # in float64, from the input
         tb, to = nb / HBM_BYTES_PER_S * 1e3, nops / FP64_TC_FLOPS_PER_S * 1e3
@@ -1709,7 +1826,8 @@ def main():
     log(f"[7] multi-seq chain, {MS_B} sequences x {ms['frames']} frames ({MS_GROUPS} groups of "
         f"{MS_KF_EVERY}, planes on, {H}x{W} float32; inputs built in {ms['build_s']:.1f} s): "
         f"one vmapped chain launched K1 {ms['launches']['shi_tomasi_batched']} and S1 "
-        f"{ms['launches']['poisson_select_batched']} times for {ms['frames']} frames, E2 "
+        f"{ms['launches']['poisson_select_batched']} times for {ms['frames']} frames, E1 "
+        f"{ms['launches']['sym_eig_batched']} times for its {ms['frames'] - 1} motion steps, E2 "
         f"{ms['launches']['sym_eig_block_batched']} times at each size for its {MS_GROUPS} "
         f"marginalizations; final "
         f"costs {[round(float(c[-1]), 3) for c in ms['costs']]}")
@@ -1751,6 +1869,7 @@ def main():
                     bound_by=bound[1], library_ms=library)
 
     k1_src, s1_src = "pvio_torch/csrc/shi_tomasi.cu", "pvio_torch/csrc/poisson_select.cu"
+    e1_batched = next(key for key in e1 if key != "4x4")
     kernels = [
         entry("shi_tomasi", "cuda", k1_src, "pvio_tpu/ops/stencil.py:28", launches["shi_tomasi"],
               k1_err_main, k1_ms, plain_ms, (bound_ms, bound_by)),
@@ -1767,6 +1886,11 @@ def main():
               "at pvio_tpu/geometry/triangulation.py:36)", launches["sym_eig"],
               e1["4x4"]["err"], e1["4x4"]["ms"], e1["4x4"]["plain_ms"], e1["4x4"]["bound"],
               library=e1["4x4"]["plain_ms"]),    # torch.linalg.eigh: plain and library call
+        entry("sym_eig_batched", "cuda", "pvio_torch/csrc/sym_eig.cu", "none (port-only; "
+              "jnp.linalg.eigh at pvio_tpu/geometry/triangulation.py:36)",
+              launches["sym_eig_batched"], e1[e1_batched]["err"], e1[e1_batched]["ms"],
+              e1[e1_batched]["plain_ms"], e1[e1_batched]["bound"],
+              library=e1[e1_batched]["plain_ms"]),
     ]
     e2_src = "pvio_torch/csrc/sym_eig_block.cu"
     e2_replaces = ("none (port-only; jnp.linalg.eigh at pvio_tpu/estimation/marginalization.py:41 "

@@ -4,31 +4,35 @@ card.
 Kernels of the port only: the reference calls `jnp.linalg.eigh`, which XLA
 runs on the device with no host read. `torch.linalg.eigh` computes the
 same on the card but then reads its error codes on the host, which makes
-its caller wait for the device. Two kernels stand in for it, both in
-float64 whatever the input type, built with nvcc at first use and bound
-with ctypes; each source's header states its design and its bound:
-- E1, `pvio_torch/csrc/sym_eig.cu` (cyclic Jacobi, one thread per 4x4
-  matrix): every DLT triangulation of the device steps
+its caller wait for the device. Two kernels stand in for it, both solving
+in float64, built with nvcc at first use and bound with ctypes; each
+source's header states its design and its bound:
+- E1, `pvio_torch/csrc/sym_eig.cu` (parallel cyclic Jacobi in the
+  round-robin ordering, a quad of lanes per 4x4 matrix, the caller's
+  float32 or float64 read and written in the one launch): every DLT
+  triangulation of the device steps
   (`geometry/triangulation.py::triangulate_homogeneous`, a 4x4 normal
   matrix per point; the initializer's two-view one keeps eigh);
 - E2, `pvio_torch/csrc/sym_eig_block.cu` (parallel cyclic Jacobi in a
   round-robin ordering, 5 <= n <= N_MAX: one warp per matrix up to
   WARP_N, above it blocked Jacobi over tiles of TILE rows on one thread
-  block cluster per matrix): the marginalization's 15x15 clamped
+  block cluster per matrix; float64 in and out, the wrapper casting a
+  float32 stack): the marginalization's 15x15 clamped
   pseudo-inverse and its (F*15)-square square-root prior
-  (`estimation/marginalization.py`). `jacobi_model` is E2's algorithm in
-  float64 PyTorch, for the tests and for checking a change of the kernel
-  on the CPU; no path of the port calls it.
+  (`estimation/marginalization.py`). `jacobi_model` is both kernels'
+  algorithm in float64 PyTorch, for the tests and for checking a change
+  of a kernel on the CPU; no path of the port calls it.
 
 `eigh(A)` is the dispatching wrapper, the custom op `pvio::sym_eig` on a
 (..., n, n) stack of symmetric matrices: a CPU tensor takes the plain
 version, `torch.linalg.eigh` (the reference's function, which the CPU
 parity tests hold); a CUDA tensor launches E1 (n = N) or E2 (5 <= n <=
 N_MAX), and raises for any other n. Both return (eigenvalues ascending
-(..., n), eigenvectors as columns (..., n, n)); a kernel's columns may
-differ from eigh's in sign, and in the basis inside a repeated
-eigenvalue, which their callers do not see. The op's vmap rule moves the
-batch dimension to the front and makes one launch for the whole stack.
+(..., n), eigenvectors as columns (..., n, n)) in A's dtype; a kernel's
+columns may differ from eigh's in sign, and in the basis inside a
+repeated eigenvalue, which their callers do not see. The op's vmap rule
+moves the batch dimension to the front and makes one launch for the
+whole stack.
 
 `LAUNCHES` counts E1's launches and `BLOCK_LAUNCHES` E2's by matrix size
 ({n: launches}); `LAST_SWEEPS` holds the Jacobi sweeps of each matrix of
@@ -61,7 +65,8 @@ _BLOCK_LIB = None
 def cost(n, B, itemsize=8):
     """(bytes, operations) of decomposing B symmetric n x n matrices, from
     the input alone: each matrix read once, its eigenvalues and
-    eigenvectors written once (in float64, the kernels' type), and the
+    eigenvectors written once, at `itemsize` bytes an entry (E1 reads and
+    writes the caller's type; E2 float64), and the
     ~9 n^3 flops a decomposition with eigenvectors needs (tridiagonal
     reduction and implicit QR, Golub & Van Loan 8.3), not the Jacobi
     rotations the kernels take."""
@@ -159,10 +164,11 @@ def _block_rounds(nb):
 
 
 def jacobi_model(A, one_block=False):
-    """Kernel E2's algorithm in float64 PyTorch, for the tests and for
-    checking a change of the kernel on the CPU: (eigenvalues ascending,
+    """Kernel E1's and E2's algorithm in float64 PyTorch, for the tests and
+    for checking a change of a kernel on the CPU: (eigenvalues ascending,
     eigenvectors as columns, sweeps) of one symmetric n x n matrix (its
-    lower triangle read). For n <= WARP_N the small form: round-robin
+    lower triangle read). At n = N, E1: round-robin Jacobi over the 4
+    indices, no padding. For n <= WARP_N E2's small form: round-robin
     Jacobi over n padded to 16 (n <= 16) or WARP_N. Above it the blocked
     form: n padded to nb tiles of TILE rows (nb even), each sweep nb - 1
     rounds of round-robin tile pairs; in a round each pair's 2 TILE-square
@@ -176,14 +182,14 @@ def jacobi_model(A, one_block=False):
     a sweep when the sum of squares above the diagonal is at most eps^2
     times the diagonal's, or after MAX_SWEEPS. `one_block` takes the small
     form's ordering at any n: the algorithm of the earlier
-    one-block-per-matrix E2 (time_e2.py --facade-check compares the two).
+    one-block-per-matrix E2 (time_eig.py --facade-check compares the two).
     Not on any path of the port: `eigh` stays torch.linalg.eigh on the
     CPU."""
     n = A.shape[-1]
     A = A.to(torch.float64)
     A = torch.tril(A) + torch.tril(A, -1).mT
     if n <= WARP_N or one_block:
-        m = 16 if n <= 16 else max(WARP_N, n + n % 2)   # the small kernel's padding
+        m = N if n == N else 16 if n <= 16 else max(WARP_N, n + n % 2)   # the kernel's padding
         S = torch.zeros(m, m, dtype=torch.float64)
         S[:n, :n] = A
         VT, sweeps = torch.eye(m, dtype=torch.float64), 0
@@ -228,10 +234,13 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load(SOURCE)
         lib.pvio_sym_eig.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
         lib.pvio_sym_eig.restype = ctypes.c_int
         if lib.pvio_sym_eig_max_sweeps() != MAX_SWEEPS:
             raise RuntimeError("sym_eig.cu's MAX_SWEEPS differs from ops/eigh.py's")
+        if lib.pvio_sym_eig_abi() != 2:      # the argtypes above, with the element size
+            raise RuntimeError("sym_eig.cu's C entry is not the one ops/eigh.py binds")
         _LIB = lib
     return _LIB
 
@@ -265,7 +274,8 @@ def build():
 def sym_eig_cuda(A):
     """Launch E1 (n = N) or E2 (5 <= n <= N_MAX) once on a CUDA tensor of
     (..., n, n) float32/float64 symmetric matrices; returns (eigenvalues,
-    eigenvectors) in A's dtype, solved in float64."""
+    eigenvectors) in A's dtype, solved in float64. E1 is that one launch;
+    E2's wrapper casts a float32 stack to float64 and back."""
     global LAUNCHES, LAST_SWEEPS
     if A.device.type != "cuda":
         raise ValueError(f"sym_eig_cuda: needs a CUDA tensor, got {A.device}")
@@ -275,10 +285,14 @@ def sym_eig_cuda(A):
     if A.dim() < 2 or A.shape[-2] != n or not (n == N or 5 <= n <= N_MAX):
         raise ValueError(f"sym_eig_cuda: needs (..., n, n) with n = {N} or 5 <= n <= {N_MAX}, "
                          f"got {tuple(A.shape)}")
-    x = A.to(torch.float64).contiguous()
-    B = x.numel() // (n * n)
-    L = torch.empty(A.shape[:-1], dtype=torch.float64, device=A.device)
+    if n == N:      # E1 reads and writes A's dtype
+        x = A.contiguous()
+        L = torch.empty(A.shape[:-1], dtype=A.dtype, device=A.device)
+    else:           # E2 works in float64
+        x = A.to(torch.float64).contiguous()
+        L = torch.empty(A.shape[:-1], dtype=torch.float64, device=A.device)
     V = torch.empty_like(x)
+    B = x.numel() // (n * n)
     if B == 0:
         return L.to(A.dtype), V.to(A.dtype)
     sweeps = torch.empty(B, dtype=torch.int32, device=A.device)
@@ -287,7 +301,7 @@ def sym_eig_cuda(A):
         stream = torch._C._cuda_getCurrentRawStream(idx)
         if n == N:
             err = _lib().pvio_sym_eig(x.data_ptr(), L.data_ptr(), V.data_ptr(),
-                                      sweeps.data_ptr(), B, stream)
+                                      sweeps.data_ptr(), B, x.element_size(), stream)
         else:
             err = _block_lib().pvio_sym_eig_block(x.data_ptr(), L.data_ptr(), V.data_ptr(),
                                                   None, sweeps.data_ptr(), B, n, stream)

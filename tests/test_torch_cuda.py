@@ -714,13 +714,20 @@ def test_transfer_counts_one_wait_per_harvest():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 256, 2816])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_sym_eig_matches_eigh_on_card(dtype):
-    """E1 against torch.linalg.eigh on the card: 256 DLT normal matrices
-    (4x4, a quarter of them all zero, as empty track columns are, a
-    quarter poorly conditioned), within chip_smoke.py's eig_gap limit
-    (1e-5 of the largest eigenvalue at float32, 1e-12 at float64); a
-    vmapped stack takes one launch."""
+def test_sym_eig_matches_eigh_on_card(dtype, B):
+    """E1 against torch.linalg.eigh on the card: B DLT normal matrices
+    (`chip_smoke.dlt_normals`: a quarter all zero, a quarter poorly
+    conditioned; B = 7 leaves a quad of lanes without a matrix, B = 2,816
+    is the vmapped chain's 11 x 256), within chip_smoke.py's eig_gap limit
+    (1e-5 of the largest eigenvalue at float32, 1e-12 at float64). A call
+    is one launch and E1's kernel alone in a profiler trace of 20 calls (no
+    cast kernels, and none lost), its outputs in A's dtype; every matrix
+    takes the sweeps of its CPU model
+    (`eigh_op.jacobi_model`, the kernel's algorithm in float64 PyTorch),
+    a zero matrix none; a vmapped stack takes one launch and equals the
+    unbatched call bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from torch.func import vmap
@@ -728,21 +735,24 @@ def test_sym_eig_matches_eigh_on_card(dtype):
     import chip_smoke as cs
     from pvio_torch.ops import eigh as eigh_op
 
-    rng = np.random.default_rng(15)
-    rows = rng.normal(size=(256, 8, 4))
-    rows[::4] = 0.0
-    rows[1::4, :, 3] *= 1e-3                      # poorly conditioned columns
-    for A_np in [rows.transpose(0, 2, 1) @ rows]:
-        A = torch.as_tensor(A_np, dtype=dtype, device="cuda")
-        before = eigh_op.LAUNCHES
-        L, V = eigh_op.eigh(A)
-        assert eigh_op.LAUNCHES == before + 1
-        assert int(eigh_op.LAST_SWEEPS.max()) < 30
-        gap, lim = cs.eig_gap(A, L, V, torch.linalg.eigh(A)[0])
-        assert gap <= lim, (A.shape, gap, lim)
-        Lv, Vv = vmap(eigh_op.eigh)(A)
-        assert eigh_op.LAUNCHES == before + 2
-        assert torch.equal(Lv, L) and torch.equal(Vv, V)
+    A = torch.as_tensor(cs.dlt_normals(B), dtype=dtype, device="cuda")
+    before = eigh_op.LAUNCHES
+    L, V = eigh_op.eigh(A)
+    assert eigh_op.LAUNCHES == before + 1
+    assert L.dtype == V.dtype == dtype and L.shape == (B, 4) and V.shape == (B, 4, 4)
+    sweeps = eigh_op.LAST_SWEEPS.tolist()
+    model = [eigh_op.jacobi_model(a)[2] for a in A.double().cpu()]
+    assert sweeps == model and max(sweeps) < eigh_op.MAX_SWEEPS, (sweeps, model)
+    zero = (A == 0).flatten(1).all(1).tolist()
+    assert all(s == 0 for s, z in zip(sweeps, zero) if z)
+    gap, lim = cs.eig_gap(A, L, V, torch.linalg.eigh(A)[0])
+    assert gap <= lim, (A.shape, gap, lim)
+    names = [name for name, _ in cs.trace_kernels(lambda: eigh_op.eigh(A), reps=20, warmup=2)]
+    assert len(names) == 20 and all("sym_eig_kernel" in n for n in names), names
+    assert eigh_op.LAUNCHES == before + 23
+    Lv, Vv = vmap(eigh_op.eigh)(A)
+    assert eigh_op.LAUNCHES == before + 24
+    assert torch.equal(Lv, L) and torch.equal(Vv, V)
 
 
 @pytest.mark.cuda

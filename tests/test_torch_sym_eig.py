@@ -10,11 +10,13 @@ for bit against eigh (the CPU implementation is eigh on the same stack);
 the marginalization's prior through the op against the reference's, S^T S
 and S^T infovec within 1e-10 of their largest entry (eigh leaves the
 eigenvectors' signs and the basis inside the 15 zeroed dimensions free,
-and the two libraries' LAPACK calls round differently). Then E2's
+and the two libraries' LAPACK calls round differently). Then the kernels'
 algorithm itself, `eigh_op.jacobi_model`, which the card tests hold the
-kernel's sweep count to: against eigh within chip_smoke.eig_gap's float64
-limit at E2's sizes, on matrices one marg_step records, and in the
-marginalization against the reference's.
+kernels' sweep counts to: against eigh within chip_smoke.eig_gap's float64
+limit at E1's 4x4 (the card test's DLT normal matrices and a seeded
+window's, as chip_smoke.eig_cases forms them) and at E2's sizes, on
+matrices one marg_step records, and in the marginalization against the
+reference's.
 """
 
 import jax
@@ -132,6 +134,8 @@ def test_wrapper_refuses_cpu_tensors_and_counts_work():
     n_bytes, ops = eigh_op.cost(4, 2)
     assert n_bytes == 2 * (2 * 16 + 4) * 8
     assert ops == 2 * 9 * 4 ** 3
+    n_bytes, _ = eigh_op.cost(4, 256, itemsize=4)     # E1 at float32: read and written so
+    assert n_bytes == 256 * (2 * 16 + 4) * 4
     n_bytes, ops = eigh_op.cost(135, 11)
     assert n_bytes == 11 * (2 * 135 ** 2 + 135) * 8
     assert ops == 11 * 9 * 135 ** 3
@@ -152,6 +156,77 @@ def test_card_engine_checks_its_window_against_e2(window):
         return
     with pytest.raises(ValueError, match="sliding_window_size is at most"):
         DeviceKernels(cfg, device="cuda")
+
+
+# E1's algorithm on the CPU (`eigh_op.jacobi_model` at n = 4: round-robin
+# Jacobi over the 4 indices, unpadded) against torch.linalg.eigh, within
+# chip_smoke.eig_gap's float64 limit (1e-12 of the largest eigenvalue).
+
+
+@pytest.mark.parametrize("r", [0, 1, 2])
+def test_e1_rounds_pair_lanes_by_xor(r):
+    """Round r of the model's ordering over 4 indices (`_pairs(4, r)`) is
+    the kernel's: index j pairs with j ^ (3 - r), and (r, 3) is a pair."""
+    P, Q = eigh_op._pairs(eigh_op.N, r, "cpu")
+    pairs = sorted(zip(P.tolist(), Q.tolist()))
+    assert pairs == sorted({tuple(sorted((j, j ^ (3 - r)))) for j in range(4)})
+    assert (r, 3) in pairs
+
+
+def _model_against_eigh(A):
+    """jacobi_model on each 4x4 matrix of A (float64): the largest eig_gap
+    and its limit, and the sweeps."""
+    import chip_smoke as cs
+
+    worst, lim, sweeps = 0.0, None, []
+    for a in A:
+        L, V, s = eigh_op.jacobi_model(a)
+        gap, lim = cs.eig_gap(a, L, V, torch.linalg.eigh(a)[0])
+        worst = max(worst, gap)
+        sweeps.append(s)
+    return worst, lim, sweeps
+
+
+@pytest.mark.parametrize("kind", ["zero", "poorly_conditioned", "full_rank"])
+def test_jacobi_model_is_eigh_at_4(kind):
+    """The card test's DLT normal matrices (`chip_smoke.dlt_normals` at
+    B = 256), by quarter: the zero matrices take no sweep, the others (the
+    last column scaled by 1e-3, or none) converge below MAX_SWEEPS to
+    eigh's eigenpairs."""
+    import chip_smoke as cs
+
+    A = torch.as_tensor(cs.dlt_normals(256))
+    A = {"zero": A[0::4], "poorly_conditioned": A[1::4],
+         "full_rank": torch.cat([A[2::4], A[3::4]])}[kind]
+    gap, lim, sweeps = _model_against_eigh(A)
+    assert gap <= lim, (gap, lim)
+    if kind == "zero":
+        assert set(sweeps) == {0}
+    else:
+        assert 0 < min(sweeps) and max(sweeps) < eigh_op.MAX_SWEEPS, sweeps
+
+
+@pytest.mark.parametrize("copy", [None, 1, -1])
+def test_jacobi_model_is_eigh_on_window_normals(copy):
+    """The DLT normal matrices of the seeded bench window (320x240,
+    float32, chip_smoke.eig_cases): every track's (copy None), and copies 1
+    and MS_B - 1 of the vmapped chain's perturbed stack of them, read by
+    the model in float64 as the kernel reads them: eigh's eigenpairs below
+    MAX_SWEEPS."""
+    import chip_smoke as cs
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.io.config import Config
+
+    cfg = Config(camera_intrinsic=np.array([200.0, 200.0, 160.0, 120.0]), image_size=(320, 240))
+    cfg.dtype = "float32"
+    kern = DeviceKernels(cfg, device="cpu")
+    w, _ = cs.bench_inputs(cfg, 1)
+    cases = cs.eig_cases(kern, w)
+    A = cases["4x4"] if copy is None else cases[f"{cs.MS_B}x{w.kp.shape[1]}x4x4"][copy]
+    assert A.dtype == torch.float32 and A.shape == (w.kp.shape[1], 4, 4)
+    gap, lim, sweeps = _model_against_eigh(A.double())
+    assert gap <= lim, (gap, lim)
+    assert 0 < min(sweeps) and max(sweeps) < eigh_op.MAX_SWEEPS, sweeps
 
 
 # E2's algorithm on the CPU (`eigh_op.jacobi_model`: the small form up to
@@ -180,7 +255,7 @@ def test_jacobi_model_is_eigh(n, zeroed):
 
 def test_jacobi_model_one_block_is_eigh():
     """The earlier one-block kernel's scalar round-robin ordering over the
-    whole matrix (`one_block`, which time_e2.py --facade-check compares
+    whole matrix (`one_block`, which time_eig.py --facade-check compares
     with the blocked one), at n = 135 on a rank-deficient
     marginalization-like matrix: eigh within eig_gap's float64 limit below
     MAX_SWEEPS."""
