@@ -12,7 +12,8 @@ points a user calls: `DeviceKernels.first_frame_step`, `frame_step`,
 the `PVIO` facade, planes off and with `Config()`'s planes on, and the CLI
 (`python -m pvio_torch.run`); then many sequences on the card: the vmapped
 multi-sequence chain (`parallel.multi_seq`) and N engines behind one host
-loop (`parallel.serving`).
+loop (`parallel.serving`); last, the BA sharded over a `torch.distributed`
+process mesh (`parallel.sharded_ba`) as a world of one.
 
 Phases; each raises on failure, so any failure exits non-zero:
   1. device and build: the card's name and power limit, the kernels built
@@ -89,9 +90,9 @@ Phases; each raises on failure, so any failure exits non-zero:
      plane ids and the tracks' planes) differs (none may at float64), and
      the card's positions within MAX_FACADE_F32_DP_M / MAX_FACADE_F64_DP_M
      of the CPU's before it. Last, the CLI on the card in a process of its
-     own, `python -m pvio_torch.run synthetic --fast` (planes on): exit 0,
-     one TUM line per pose it reports, finite poses and its printed ATE
-     under CLI_MAX_ATE_M;
+     own, `python -m pvio_torch.run synthetic --fast --view3d` (planes on):
+     exit 0, one TUM line per pose it reports, finite poses, its printed ATE
+     under CLI_MAX_ATE_M and a non-empty 3D viewer page;
   7. the multi-sequence chain at Config()'s size, planes on: MS_B
      sequences through one vmapped chain, K1 and S1 launched once per frame,
      E1 at least once per motion step and E2 once at each size per
@@ -108,7 +109,15 @@ Phases; each raises on failure, so any failure exits non-zero:
      (so the timed run is not) for PyTorch's own synchronising calls per
      tick, by kind of tick: a tick that does not initialize may name no
      site in ransac.py (fault F3, repaired);
-  9. the kernel table (JSON; the single-image entries' launches are the
+  9. the sharded BA (`parallel.sharded_ba`, reaching no kernel): a world of
+     one over NCCL (`ProcessMesh(1, 1)`, tp = dp = 1: NCCL cannot put two
+     ranks on one card) solving SHARD_B copies of BASELINE config 5's window
+     (16 keyframes x 256 tracks) at float64 within MAX_SHARD_DP_M of
+     ba.solve on the card, and at float32 (its gap printed, not held); ms
+     per sharded solve beside ba.solve's; no synchronising call in a warm
+     solve (one runs under sync debug mode "error"); a CUDA window through
+     the checkpoint and back, every leaf equal;
+ 10. the kernel table (JSON; the single-image entries' launches are the
      planes-on sequential run's, the batched entries' the vmapped chain's),
      the total time, the nvidia-smi line and, last, the result.
 
@@ -202,6 +211,15 @@ CLI_TIMEOUT_S = 400
 # throughout. The bounds keep ~4x and ~10x.
 MAX_FACADE_F32_DP_M = 1e-2
 MAX_FACADE_F64_DP_M = 5e-5
+# the sharded BA (phase 9): BASELINE config 5's enlarged window
+# (tests/test_parallel.py:126-137: 16 keyframes x 256 tracks, two LM
+# iterations, planes off), SHARD_B perturbed copies, through the sharded
+# solver on a world of one over NCCL (tp = dp = 1), held to ba.solve on the
+# card at float64 within MAX_SHARD_DP_M (the reference holds its sharded
+# solve to 1e-8 m); its float32 run's gap is printed, not held
+SHARD_B = 2
+MAX_SHARD_DP_M = 1e-8
+SHARD_REPS = 5
 
 
 def log(msg):
@@ -1031,21 +1049,26 @@ def check_planes(rec, what):
 
 
 def run_cli():
-    """`python -m pvio_torch.run synthetic --output <tmp> --fast` (planes on,
-    on the card) in a subprocess. Raises unless it exits 0, writes one TUM
-    line per pose it reports, and prints an ATE within CLI_MAX_ATE_M."""
+    """`python -m pvio_torch.run synthetic --output <tmp> --fast --view3d
+    <tmp>` (planes on, on the card) in a subprocess. Raises unless it exits
+    0, writes one TUM line per pose it reports, prints an ATE within
+    CLI_MAX_ATE_M and writes a non-empty 3D viewer page (numpy and json
+    only; the flags that draw with matplotlib stay on the CPU)."""
     import re
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "trajectory.tum"
+        out, page = Path(tmp) / "trajectory.tum", Path(tmp) / "map.html"
         env = dict(os.environ, PYTHONPATH=str(ROOT))
         proc = subprocess.run([sys.executable, "-m", "pvio_torch.run", "synthetic", "--output",
-                               str(out), "--fast"], cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=CLI_TIMEOUT_S)
+                               str(out), "--fast", "--view3d", str(page)], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
         if proc.returncode != 0:
             raise RuntimeError(f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
         rows = [line.split() for line in out.read_text().splitlines()]
+        view3d_bytes = page.stat().st_size if page.is_file() else 0
+    if not (view3d_bytes > 0 and f"3D viewer written to {page}" in proc.stdout):
+        raise RuntimeError(f"the CLI wrote no 3D viewer page: {proc.stdout[-2000:]}")
     written = re.search(r"^(\d+) poses written to ", proc.stdout, re.M)
     ate = re.search(r"^ATE RMSE \(SE3\): ([0-9.]+) cm over (\d+) poses", proc.stdout, re.M)
     planes = re.search(r"'sliding_window_planes': (\d+)", proc.stdout)
@@ -1053,6 +1076,7 @@ def run_cli():
         raise RuntimeError(f"the CLI printed no pose count or ATE: {proc.stdout[-2000:]}")
     vals = np.array(rows, float) if rows else np.zeros((0, 8))
     rec = dict(written=int(written.group(1)), lines=len(rows), ate_cm=ate.group(1),
+               view3d_bytes=view3d_bytes,
                ate_m=float(ate.group(1)) / 100, ate_poses=int(ate.group(2)),
                planes=int(planes.group(1)) if planes else None)
     if not (rec["lines"] == rec["written"] > 0 and vals.shape[1] == 8
@@ -1069,6 +1093,102 @@ def state_ms(calls):
         if ms:
             out[state] = (statistics.median(ms), len(ms))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded BA on the card: a world of one over NCCL
+
+
+def sharded_phase():
+    """Phase 9: `parallel.sharded_ba` over NCCL as a world of one
+    (`ProcessMesh(1, 1)` on cuda:0), on SHARD_B perturbed copies of BASELINE
+    config 5's window, at float64 against ba.solve on the card and at
+    float32 (the gap printed); ms per sharded solve beside ba.solve's (one
+    window after the other); the synchronising calls of a warm solve (sync
+    debug mode "warn") and one warm solve under "error"; a CUDA window
+    through `checkpoint.save_window` / `load_window`. Returns a record."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from pvio_torch.estimation import ba as ba_mod
+    from pvio_torch.io import checkpoint, synthetic
+    from pvio_torch.parallel import batch as pbatch
+    from pvio_torch.parallel import sharded_ba
+
+    dev = torch.device("cuda", 0)
+    scene = synthetic.make_scene(duration=6.0, fps=20.0, n_points=300, seed=7)
+    w, extr, info = synthetic.solver_window_from_scene(
+        scene, list(range(0, 16 * 4, 4)), F_cap=16, T_cap=256, dtype=torch.float64,
+        device=dev, kp_noise=0.001)
+    if info["n_frames"] != 16:
+        raise RuntimeError(f"the config-5 window holds {info['n_frames']} keyframes, not 16")
+    ws = []
+    for seed in range(SHARD_B):     # tests/test_parallel.py's _perturb
+        dp = np.random.default_rng(seed).normal(size=tuple(w.p.shape)) * 0.005
+        dp[0] = 0.0
+        ws.append(w._replace(p=w.p + torch.as_tensor(dp, device=dev)))
+    cfg = ba_mod.BAConfig(iterations=2, kp_sqrt_inv_cov=283.0, use_planes=False)
+    rec = dict(tracks=info["n_tracks"])
+
+    def to32(tree):
+        return pytree.tree_map(lambda a: a.float() if a.is_floating_point() else a, tree)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # NCCL bootstraps over a socket of its own; a world of one needs loopback only
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg_init", rank=0,
+                                world_size=1)
+        try:
+            mesh = sharded_ba.ProcessMesh(1, 1)
+            if mesh.device != dev:
+                raise RuntimeError(f"the NCCL mesh chose {mesh.device}, not {dev}")
+            solver = sharded_ba.make_sharded_solver(mesh, extr, cfg)
+            wb = pbatch.stack_windows(ws)
+            out, costs = solver(wb)
+            singles = [ba_mod.solve(wi, extr, cfg)[0] for wi in ws]
+            rec["dp_m"] = max(float((out.p[i] - s.p).abs().max()) for i, s in enumerate(singles))
+            if not (torch.isfinite(costs).all() and torch.isfinite(out.p).all()
+                    and rec["dp_m"] <= MAX_SHARD_DP_M):
+                raise RuntimeError(f"the float64 sharded solve parts from ba.solve by "
+                                   f"{rec['dp_m']} m (bound {MAX_SHARD_DP_M} m), costs {costs}")
+            rec["costs"] = [float(c) for c in costs]
+            solver32 = sharded_ba.make_sharded_solver(mesh, to32(extr), cfg)
+            wb32 = to32(wb)
+            out32, costs32 = solver32(wb32)
+            singles32 = [ba_mod.solve(to32(wi), to32(extr), cfg)[0] for wi in ws]
+            rec["dp32_vs64_m"] = float((out32.p.double() - out.p).abs().max())
+            rec["dp32_vs_solve32_m"] = max(float((out32.p[i] - s.p).abs().max())
+                                           for i, s in enumerate(singles32))
+            rec["costs32_finite"] = bool(torch.isfinite(costs32).all())
+            rec["sharded_ms"] = cuda_ms(lambda: solver(wb), reps=SHARD_REPS, warmup=1)
+            rec["solve_ms"] = cuda_ms(lambda: [ba_mod.solve(wi, extr, cfg) for wi in ws],
+                                      reps=SHARD_REPS, warmup=1)
+            rec["sharded32_ms"] = cuda_ms(lambda: solver32(wb32), reps=SHARD_REPS, warmup=1)
+            # warm: the communicator exists; a solve must not wait on the host
+            rec["sync_sites"] = host_waits(lambda: solver(wb))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again, _ = solver(wb)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            if not torch.equal(again.p, out.p):
+                raise RuntimeError("a second sharded solve of the same batch differs")
+            path = Path(tmp) / "window.npz"
+            checkpoint.save_window(path, ws[0])
+            back = checkpoint.load_window(path)
+            lv = pytree.tree_leaves(ws[0])
+            rec["checkpoint_leaves"] = len(lv)
+            if not all(b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)
+                       for a, b in zip(lv, pytree.tree_leaves(back))):
+                raise RuntimeError("a CUDA window does not come back equal from its checkpoint")
+        finally:
+            dist.destroy_process_group()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1814,10 +1934,11 @@ def main():
     # the CLI on the card, in a process of its own
     t0 = time.perf_counter()
     cli = run_cli()
-    log(f"[6] CLI `python -m pvio_torch.run synthetic --fast` on the card: "
+    log(f"[6] CLI `python -m pvio_torch.run synthetic --fast --view3d` on the card: "
         f"{time.perf_counter() - t0:.1f} s, rc 0, {cli['lines']} TUM lines for {cli['written']} "
         f"poses written, ATE {cli['ate_cm']} cm as it prints it, over {cli['ate_poses']} "
-        f"poses (bound {CLI_MAX_ATE_M} m), {cli['planes']} plane slots at the end")
+        f"poses (bound {CLI_MAX_ATE_M} m), {cli['planes']} plane slots at the end, 3D "
+        f"viewer page {cli['view3d_bytes']} bytes")
 
     # 7. many sequences: the vmapped chain -----------------------------------------
     t0 = time.perf_counter()
@@ -1862,7 +1983,23 @@ def main():
     if f3:
         raise RuntimeError(f"find_plane still synchronises in served ticks (fault F3): {f3}")
 
-    # 9. summary -----------------------------------------------------------------
+    # 9. the sharded BA on the card --------------------------------------------------
+    t0 = time.perf_counter()
+    sh = sharded_phase()
+    log(f"[9] sharded BA, a world of one over NCCL (tp = dp = 1), BASELINE config 5's window "
+        f"(16 keyframes x {sh['tracks']} tracks, 2 LM iterations, planes off) x {SHARD_B}: "
+        f"float64 max |dp| vs ba.solve {sh['dp_m']:.3e} m (bound {MAX_SHARD_DP_M} m), costs "
+        f"{sh['costs']}; float32 (not held) max |dp| vs the float64 sharded solve "
+        f"{sh['dp32_vs64_m']:.3e} m, vs float32 ba.solve {sh['dp32_vs_solve32_m']:.3e} m, costs "
+        f"finite {sh['costs32_finite']}")
+    log(f"[9]   ms per call (CUDA events, median of {SHARD_REPS}): sharded solve of the "
+        f"{SHARD_B} windows {sh['sharded_ms']:.3f} (float32 {sh['sharded32_ms']:.3f}) vs "
+        f"ba.solve of each in turn {sh['solve_ms']:.3f}; a warm sharded solve's synchronising "
+        f"calls (sync debug mode \"warn\") {sh['sync_sites']}, and one under \"error\" raised "
+        f"nothing; a CUDA window's checkpoint round trip: {sh['checkpoint_leaves']} leaves "
+        f"equal; phase {time.perf_counter() - t0:.1f} s")
+
+    # 10. summary ----------------------------------------------------------------
     def entry(name, route, source, replaces, n, err, t, plain, bound, library=None):
         return dict(name=name, route=route, source=source, replaces=replaces, launches=n,
                     max_abs_err=err, ms=t, plain_ms=plain, bound_ms=bound[0],
@@ -1903,7 +2040,7 @@ def main():
         kernels.append(entry(name, "cuda", e2_src, e2_replaces, n, e2[key]["err"], e2[key]["ms"],
                              e2[key]["plain_ms"], e2[key]["bound"],
                              library=e2[key]["plain_ms"]))   # torch.linalg.eigh, as for E1
-    log(f"[9] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[10] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

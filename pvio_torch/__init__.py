@@ -18,8 +18,10 @@ The device steps alone: `DeviceKernels(Config())`. From a dataset on disk:
 `python -m pvio_torch.run euroc://<dir> config/euroc.yaml` (`pvio_torch/run.py`).
 """
 
-__all__ = ["Config", "DeviceKernels", "PVIO", "OutputPose", "OutputState",
-           "OutputMapPoint", "OutputPlane"]
+from pvio_torch.version import __version__, version_info
+
+__all__ = ["__version__", "version_info", "Config", "DeviceKernels", "PVIO", "OutputPose",
+           "OutputState", "OutputMapPoint", "OutputPlane"]
 
 _LAZY = {
     "Config": ("pvio_torch.io.config", "Config"),

@@ -11,13 +11,17 @@ slots); every factor is evaluated on the dense grid under masks. The
 reprojection Jacobians come from one forward-mode Jacobian over a 13-dim
 tangent shared by every observation (each observation's residual depends
 only on its own copy, so this equals the reference's vmap over
-observations). The track-sharded variant (`tp_axis`) belongs with the
-parallel layers and is not here.
+observations). The reference's `tp_axis` (tracks sharded over devices)
+is `counts` here: `plane_counts` summed over the track shards, passed to
+`_factor_masks`, `evaluate_cost` and `linearize`
+(`parallel/sharded_ba.py`).
 
-`_lm_step` is `linearize`, then `_schur_solve` (landmark Schur complement
-and the Cholesky solve of the reduced camera system), then `_retract_cost`
-(the step and the cost at its end). A Cholesky failure gives a NaN step and
-a NaN cost, so the step is rejected, as with the reference's `cho_factor`.
+`_lm_step` is `linearize`, then `_schur_solve` (`_eliminate`: the
+landmark Schur complement's blocks; `_reduced_solve`: the Cholesky solve
+of the reduced camera system; `_depth_step`), then `_retract_cost` (the
+step and the cost at its end); the sharded solver reduces between those
+stages. A Cholesky failure gives a NaN step and a NaN cost, so the step
+is rejected, as with the reference's `cho_factor`.
 The LM loop is a Python loop that never waits on the device: accept or
 reject is a `torch.where` over every state field of the window.
 """
@@ -66,19 +70,40 @@ class BAConfig(NamedTuple):
 # factor masks
 
 
-def _factor_masks(w: WindowState, cfg: BAConfig):
-    """(repro_mask (F, T), depth_active (T,), plane_track (T,), plane_big (P,))."""
+def _plane_members(w: WindowState):
+    """Each track's clamped plane slot (T,) and whether it is a member (T,)."""
+    P = w.plane_mask.shape[0]
+    pid = torch.clamp(w.plane_id, 0, P - 1)
+    member = w.track_mask & ((w.track_flags & TF_PLANE) != 0) & (w.plane_id >= 0)
+    return pid, member
+
+
+def plane_counts(w: WindowState):
+    """Member tracks per plane slot (P,): the one cross-track statistic of
+    the factor masks (it gates the augmented plane factor). A track-sharded
+    solve sums it over its group and passes the sum as `counts`, where the
+    reference psums it inside `_factor_masks` (`ba.py:100-114`). Only the
+    track fields enter it, which an LM step leaves as they are."""
+    P = w.plane_mask.shape[0]
+    pid, member = _plane_members(w)
+    # a one-hot sum: deterministic on CUDA
+    onehot = pid[:, None] == torch.arange(P, device=w.kp.device)[None, :]
+    return torch.sum(member[:, None] & onehot, dim=0)
+
+
+def _factor_masks(w: WindowState, cfg: BAConfig, counts=None):
+    """(repro_mask (F, T), depth_active (T,), plane_track (T,), plane_big (P,)).
+    `counts` (P,) are the plane member counts over every track of the
+    window, `plane_counts(w)` when not given."""
     F, T = w.kp.shape[0], w.kp.shape[1]
     P = w.plane_mask.shape[0]
     dev = w.kp.device
     is_valid = (w.track_flags & TF_VALID) != 0
     is_plane = (w.track_flags & TF_PLANE) != 0
     if cfg.use_planes:
-        pid = torch.clamp(w.plane_id, 0, P - 1)
-        member = w.track_mask & is_plane & (w.plane_id >= 0)
-        # member count per plane slot (a one-hot sum: deterministic on CUDA)
-        onehot = pid[:, None] == torch.arange(P, device=dev)[None, :]
-        counts = torch.sum(member[:, None] & onehot, dim=0)
+        pid, member = _plane_members(w)
+        if counts is None:
+            counts = plane_counts(w)
         plane_big = (counts >= cfg.min_plane_tracks) & w.plane_mask
         big_track = member & plane_big[pid]
     else:
@@ -183,10 +208,11 @@ def preint_factors(w: WindowState, extr: Extrinsics):
         *_consecutive(w))
 
 
-def evaluate_cost(w: WindowState, extr: Extrinsics, cfg: BAConfig):
-    """Total robustified cost at the current state (no Jacobians)."""
+def evaluate_cost(w: WindowState, extr: Extrinsics, cfg: BAConfig, counts=None):
+    """Total robustified cost at the current state (no Jacobians); `counts`
+    as in `_factor_masks`."""
     dtype = w.p.dtype
-    repro_mask, _, plane_track, _ = _factor_masks(w, cfg)
+    repro_mask, _, plane_track, _ = _factor_masks(w, cfg, counts)
     c2 = cfg.cauchy_scale * cfg.cauchy_scale
     q_t, p_t, q_r, p_r, d, z_r, z_t = _grid_args(w)
     r = factors.reprojection_residual(q_t, p_t, q_r, p_r, d, z_r, z_t, extr,
@@ -228,14 +254,15 @@ def _pad15(x, *dims):
     return torch.nn.functional.pad(x, pad)
 
 
-def linearize(w: WindowState, extr: Extrinsics, cfg: BAConfig):
+def linearize(w: WindowState, extr: Extrinsics, cfg: BAConfig, counts=None):
     """Gauss-Newton system. Returns (H (D, D), Hpd (D, T), Hdd (T,), b (D,),
     bd (T,), depth_active (T,), cost, dims (D,)), D = F*15, plus P*3 when
     planes are estimated in the solve (each armed plane's normal-tangent and
-    distance); `dims` masks the active dimensions of the whole state."""
+    distance); `dims` masks the active dimensions of the whole state.
+    `counts` as in `_factor_masks`."""
     F, T = w.kp.shape[0], w.kp.shape[1]
     dtype, dev = w.p.dtype, w.p.device
-    repro_mask, depth_active, plane_track, plane_big = _factor_masks(w, cfg)
+    repro_mask, depth_active, plane_track, plane_big = _factor_masks(w, cfg, counts)
     c2 = cfg.cauchy_scale * cfg.cauchy_scale
     grid = _grid_args(w)
 
@@ -339,36 +366,61 @@ def linearize(w: WindowState, extr: Extrinsics, cfg: BAConfig):
 # LM solve with Schur elimination
 
 
-def _schur_solve(H, Hpd, Hdd, b, bd, depth_active, m, lam):
-    """Damp, eliminate the depths and solve the reduced camera system by
-    Cholesky. Returns the pose/plane step dp (D,) and depth step dd (T,)."""
-    dtype, dev = H.dtype, H.device
-    D = H.shape[0]
-    da = depth_active.to(dtype)
-    H = H * m[:, None] * m[None, :]
-    b = b * m
+def _eliminate(Hpd, Hdd, bd, depth_active, m, lam):
+    """The depth-elimination blocks of the damped system: the masked Hpd and
+    bd, the damped inverse depth diagonal, and the two terms that the depths
+    take from the reduced camera system, S = Hpd Hdd^-1 Hpd^T and
+    s = Hpd Hdd^-1 bd. A track-sharded solve sums S and s over its group."""
+    da = depth_active.to(Hpd.dtype)
     Hpd = Hpd * m[:, None] * da[None, :]
     bd = bd * da
     Hdd = torch.where(depth_active, Hdd, 1.0)
+    Hdd_inv = 1.0 / (Hdd * (1.0 + lam))
+    return Hpd, bd, Hdd_inv, (Hpd * Hdd_inv[None, :]) @ Hpd.T, Hpd @ (bd * Hdd_inv)
+
+
+def _reduced_solve(H, b, S, s, m, lam):
+    """Damp the pose/plane system, take the depths' S and s out of it and
+    solve it by Cholesky. Returns the pose/plane step dp (D,)."""
+    dtype, dev = H.dtype, H.device
+    D = H.shape[0]
+    H = H * m[:, None] * m[None, :]
+    b = b * m
     diag_floor = torch.clamp(torch.diagonal(H), min=1e-8)
     Hpp_d = H + torch.diag(lam * diag_floor + (1.0 - m))    # inactive dims: unit diagonal
-    Hdd_inv = 1.0 / (Hdd * (1.0 + lam))
-    Hred = Hpp_d - (Hpd * Hdd_inv[None, :]) @ Hpd.T
-    bred = b - Hpd @ (bd * Hdd_inv)
+    Hred = Hpp_d - S
+    bred = b - s
     jitter = 1e-9 * torch.trace(Hred) / D
     L = cholesky_or_nan(Hred + jitter * torch.eye(D, dtype=dtype, device=dev))
-    dp = torch.cholesky_solve(-bred[:, None], L)[:, 0] * m
-    dd = (-bd - Hpd.T @ dp) * Hdd_inv * da
-    return dp, dd
+    return torch.cholesky_solve(-bred[:, None], L)[:, 0] * m
 
 
-def _retract_cost(w: WindowState, dp, dd, extr: Extrinsics, cfg: BAConfig):
-    """The window after the step, and the cost there."""
+def _depth_step(Hpd, bd, Hdd_inv, depth_active, dp):
+    """Back-substitution of the depths from the masked blocks of `_eliminate`."""
+    return (-bd - Hpd.T @ dp) * Hdd_inv * depth_active.to(Hpd.dtype)
+
+
+def _schur_solve(H, Hpd, Hdd, b, bd, depth_active, m, lam):
+    """Damp, eliminate the depths and solve the reduced camera system by
+    Cholesky. Returns the pose/plane step dp (D,) and depth step dd (T,)."""
+    Hpd, bd, Hdd_inv, S, s = _eliminate(Hpd, Hdd, bd, depth_active, m, lam)
+    dp = _reduced_solve(H, b, S, s, m, lam)
+    return dp, _depth_step(Hpd, bd, Hdd_inv, depth_active, dp)
+
+
+def _retract(w: WindowState, dp, dd):
+    """The window after the pose/plane step dp and the depth step dd."""
     F = w.q.shape[0]
     P = w.plane_mask.shape[0]
     w_new = win.retract(w, dp[:F * 15].reshape(F, 15), dd)
     if dp.shape[0] > F * 15:
         w_new = win.retract_planes(w_new, dp[F * 15:].reshape(P, 3))
+    return w_new
+
+
+def _retract_cost(w: WindowState, dp, dd, extr: Extrinsics, cfg: BAConfig):
+    """The window after the step, and the cost there."""
+    w_new = _retract(w, dp, dd)
     return w_new, evaluate_cost(w_new, extr, cfg)
 
 

@@ -2,8 +2,9 @@
 
 The port's own copy of `pvio_tpu/models/presets.py`: `euroc`, `tum_vi`,
 `vio_no_planes`, `fast`, `PRESETS`, `config`, `build` (a live
-`pvio_torch.PVIO`, on CUDA unless `device="cpu"`) and `batched_solver` (the
-keyframe BA vmapped over sequences). Each preset returns a
+`pvio_torch.PVIO`, on CUDA unless `device="cpu"`), `batched_solver` (the
+keyframe BA vmapped over sequences) and `sharded_solver` (the BA over a
+dp x tp process mesh, on the mesh's device). Each preset returns a
 fully populated `Config` for one deployment shape of the framework:
 
   * ``euroc``          — EuRoC MAV mono+IMU with plane priors (the
@@ -14,8 +15,6 @@ fully populated `Config` for one deployment shape of the framework:
                          (PVIO_ENABLE_PLANE_CONSTRAINT=OFF analog)
   * ``fast``           — reduced budgets for latency-critical serving
                          (smaller window/track caps, fewer LM iterations)
-
-The reference's `sharded_solver` waits for the port's sharded BA.
 """
 
 import os
@@ -91,23 +90,17 @@ def build(name: str, device=None):
     return PVIO(config(name), device=device)
 
 
-def batched_solver(cfg: Config = None, device=None):
-    """Deployment model: the keyframe-BA step vmapped over a batch of
-    sequences (BASELINE.json config 4), on CUDA unless `device` says
-    otherwise. Returns (step_fn, ba_config)."""
+def _solver_parts(cfg: Config, device):
+    """The extrinsics on `device` and the BAConfig of a fleet solver."""
     import torch
 
-    from pvio_torch.core.kernels import resolve_device
     from pvio_torch.estimation import ba as ba_mod
     from pvio_torch.map.window import Extrinsics
-    from pvio_torch.parallel import batch as batch_mod
 
-    cfg = cfg or euroc()
-    dev = resolve_device(device)
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=dev)
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=device)
 
     extr = Extrinsics(q_bc=t(cfg.q_bc), p_bc=t(cfg.p_bc), q_bi=t(cfg.q_bi), p_bi=t(cfg.p_bi))
     ba_cfg = ba_mod.BAConfig(
@@ -115,4 +108,25 @@ def batched_solver(cfg: Config = None, device=None):
         kp_sqrt_inv_cov=cfg.kp_sqrt_inv_cov,
         use_planes=cfg.enable_plane_constraint,
     )
+    return extr, ba_cfg
+
+
+def batched_solver(cfg: Config = None, device=None):
+    """Deployment model: the keyframe-BA step vmapped over a batch of
+    sequences (BASELINE.json config 4), on CUDA unless `device` says
+    otherwise. Returns (step_fn, ba_config)."""
+    from pvio_torch.core.kernels import resolve_device
+    from pvio_torch.parallel import batch as batch_mod
+
+    extr, ba_cfg = _solver_parts(cfg or euroc(), resolve_device(device))
     return batch_mod.make_batched_keyframe_step(extr, ba_cfg), ba_cfg
+
+
+def sharded_solver(mesh, cfg: Config = None):
+    """Deployment model: distributed BA over a dp x tp process mesh
+    (`parallel.sharded_ba.ProcessMesh`; BASELINE.json config 5), on the
+    mesh's device. Returns the sharded solver callable."""
+    from pvio_torch.parallel import sharded_ba
+
+    extr, ba_cfg = _solver_parts(cfg or euroc(), mesh.device)
+    return sharded_ba.make_sharded_solver(mesh, extr, ba_cfg)

@@ -1,4 +1,4 @@
-"""Many sequences on one device: `batch` (vmapped keyframe solvers),
-`multi_seq` (the vmapped coupled chain) and `serving` (N `PVIO` engines
-behind one host loop). Mirrors `pvio_tpu/parallel/`; the sharded solver
-(`sharded_ba`) and the dp-sharded chain are not ported yet."""
+"""Many sequences and many processes: `batch` (vmapped keyframe solvers),
+`multi_seq` (the vmapped coupled chain, dp-sharded with a mesh), `serving`
+(N `PVIO` engines behind one host loop) and `sharded_ba` (the BA over a
+dp x tp `torch.distributed` process mesh). Mirrors `pvio_tpu/parallel/`."""

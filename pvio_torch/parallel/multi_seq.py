@@ -1,4 +1,4 @@
-"""Multi-sequence coupled-chain batching on one device (BASELINE config 4).
+"""Multi-sequence coupled-chain batching (BASELINE config 4).
 
 Matches `pvio_tpu/parallel/multi_seq.py`: `build_sequence_inputs`,
 `make_chain` and `run_batched`. N sequences run the fused per-frame device
@@ -20,8 +20,8 @@ window-column association.
 The reference's `lax.scan` over groups is a Python loop here. It never
 reads the device: every step is device code, and the chain's constants
 (the key, the identity rotation, the inverse intrinsics) are filled on the
-device. The reference's `mesh` argument (the batch sharded over a dp mesh)
-is not ported yet.
+device. With a `mesh`, `run_batched` shards the batch over its dp axis
+(`torch.distributed`, `parallel/sharded_ba.py`).
 """
 
 import numpy as np
@@ -201,14 +201,31 @@ def make_chain(kern, cfg, groups, kf_every=4):
     return chain
 
 
-def run_batched(kern, cfg, ws, arrays_list, groups, kf_every=4):
+def run_batched(kern, cfg, ws, arrays_list, groups, kf_every=4, mesh=None):
     """Run N sequences (windows on the engine's device, as
     `build_sequence_inputs` makes them) end to end through one vmapped
-    chain. Returns (costs (N, groups) numpy, windows list)."""
+    chain, or dp-sharded over `mesh` (a `sharded_ba.ProcessMesh` on the
+    engine's device): each dp rank runs the vmapped chain on its contiguous
+    block of the N sequences (N must divide by dp; the ranks of a tp group
+    run the same block), and the costs and windows are gathered over the
+    dp group, as the reference's `P("dp")` sharding. Returns (costs
+    (N, groups) numpy, windows list)."""
     chain = make_chain(kern, cfg, groups, kf_every)
-    wb = pbatch.stack_windows(ws)
-    ab = upload_arrays(kern, {k: np.stack([np.asarray(a[k]) for a in arrays_list])
+    n = len(ws)
+    lo, hi = 0, n
+    if mesh is not None:
+        mesh.check(ws[0].p, "the windows")
+        if n % mesh.dp:
+            raise ValueError(f"run_batched: {n} sequences do not divide by dp {mesh.dp}")
+        lo = mesh.dp_idx * (n // mesh.dp)
+        hi = lo + n // mesh.dp
+    wb = pbatch.stack_windows(ws[lo:hi])
+    ab = upload_arrays(kern, {k: np.stack([np.asarray(a[k]) for a in arrays_list[lo:hi]])
                               for k in arrays_list[0]})
-    stir = torch.zeros(len(ws), dtype=kern.dtype, device=kern.device)
+    stir = torch.zeros(hi - lo, dtype=kern.dtype, device=kern.device)
     costs, wf = vmap(chain)(wb, ab, stir)
-    return costs.cpu().numpy(), pbatch.unstack_windows(wf, len(ws))
+    if mesh is not None:
+        from pvio_torch.parallel.sharded_ba import gather_batch
+
+        costs, wf = gather_batch((costs, wf), mesh)
+    return costs.cpu().numpy(), pbatch.unstack_windows(wf, n)

@@ -4,6 +4,8 @@
                               legacy-sensors://FILE | synthetic> [config.yaml]
         [--output trajectory.tum] [--max-frames N] [--cpu]
         [--dtype float32|float64] [--no-planes] [--pipelined] [--fast]
+        [--plot PNG] [--view3d HTML] [--overlay-dir DIR [--overlay-every N]]
+        [--live DIR [--live-every N]] [--status]
 
 Matches `pvio_tpu/run.py`'s `main`: drives a dataset (or the built-in
 synthetic scene, whose ATE against its ground truth is printed) through
@@ -14,8 +16,13 @@ without a card and without `--cpu` the run raises, as `PVIO` does.
 On `synthetic` the scene's own preset (`io/synthetic.pipeline_config`)
 replaces the YAML config; `--no-planes`, `--dtype`, `--pipelined` and
 `--fast` apply to it (the reference keeps only the plane switch there).
-The reference's visual flags (`--plot`, `--view3d`, `--overlay-dir`,
-`--live`, `--status`) need its visualizer modules and are not here.
+
+The visual flags write what the reference's do, from the forensics bus
+through an `on_frame` hook called after every frame: `--view3d` the 3D
+map viewer (`io/viewer3d.py`, numpy + json only); `--plot` the end-of-run
+dashboard, `--overlay-dir` the tracked-feature overlays, `--live` an
+auto-refreshing live view and `--status` a terminal status line
+(`io/visualizer.py`; all but `--status` need matplotlib).
 """
 
 import argparse
@@ -68,11 +75,66 @@ def main(argv=None):
                     help="full fast path: pipelined host loop + fused + "
                          "chained keyframe (one combined deferred fetch "
                          "per frame, keyframes included)")
+    ap.add_argument("--plot", default=None, metavar="PNG",
+                    help="render the forensics dashboard to this file")
+    ap.add_argument("--view3d", default=None, metavar="HTML",
+                    help="write the interactive 3D map viewer (orbitable "
+                         "landmarks/frusta/planes/trajectory; the reference "
+                         "NanoVis 3D window, main.cpp:264-470) at end of run")
+    ap.add_argument("--overlay-dir", default=None, metavar="DIR",
+                    help="save tracked-feature overlays (every --overlay-every"
+                         " frames) to this directory")
+    ap.add_argument("--overlay-every", type=int, default=10)
+    ap.add_argument("--live", default=None, metavar="DIR",
+                    help="live view: auto-refreshing DIR/live.html + "
+                         "overlay/dashboard PNGs updated during the run "
+                         "(reference GUI role, main.cpp:264-470)")
+    ap.add_argument("--live-every", type=int, default=10,
+                    help="re-render the live view every N frames")
+    ap.add_argument("--status", action="store_true",
+                    help="in-place terminal status line with fps/lag/BA "
+                         "sparklines")
     args = ap.parse_args(argv)
 
     from pvio_torch import PVIO, Config
     from pvio_torch.io.tum_writer import TumTrajectoryWriter
     from pvio_torch.utils.forensics import bus
+
+    recorder = None
+    live = None
+    if args.live or args.status:
+        from pvio_torch.io.visualizer import LiveVisualizer
+
+        live = LiveVisualizer(directory=args.live, every=args.live_every,
+                              terminal=args.status, bus=bus,
+                              get_trajectory=lambda: vio.get_trajectory())
+        recorder = live.history  # shared with the end-of-run dashboard
+    elif args.plot:
+        from pvio_torch.io.visualizer import HistoryRecorder
+
+        recorder = HistoryRecorder(bus)
+
+    overlay_count = [0]
+
+    def on_frame(t):
+        if live is not None:
+            live.frame(t)
+        elif recorder is not None:
+            recorder.sample(t)
+        if args.overlay_dir:
+            k = overlay_count[0]
+            overlay_count[0] += 1
+            if k % args.overlay_every == 0:
+                import os
+
+                from pvio_torch.io.visualizer import render_feature_overlay
+
+                os.makedirs(args.overlay_dir, exist_ok=True)
+                try:
+                    render_feature_overlay(
+                        f"{args.overlay_dir}/frame_{k:05d}.png", bus=bus)
+                except ValueError:
+                    pass
 
     device = "cpu" if args.cpu else None
     if args.dataset == "synthetic":
@@ -93,6 +155,7 @@ def main(argv=None):
                     pose = vio.track_camera(scene.frame_t[fi], img)
                     if pose is not None:
                         wtr.write_pose(pose.t, pose.q, pose.p)
+                    on_frame(scene.frame_t[fi])
                     fi += 1
                     n += 1
                     if args.max_frames and n >= args.max_frames:
@@ -110,7 +173,23 @@ def main(argv=None):
         vio = PVIO(cfg, device=device)
         reader = open_dataset(args.dataset, cfg)
         with TumTrajectoryWriter(args.output) as wtr:
-            run_dataset(vio, reader, wtr, max_frames=args.max_frames)
+            run_dataset(vio, reader, wtr, max_frames=args.max_frames,
+                        on_frame=on_frame)
+
+    if args.view3d:
+        from pvio_torch.io.viewer3d import render_view3d
+
+        render_view3d(args.view3d, bus=bus, trajectory=vio.get_trajectory(),
+                      title=f"pvio_torch 3D — {args.dataset}")
+        print(f"3D viewer written to {args.view3d}")
+
+    if args.plot:
+        from pvio_torch.io.visualizer import render_dashboard
+
+        render_dashboard(args.plot, trajectory=vio.get_trajectory(),
+                         history=recorder, bus=bus,
+                         title=f"pvio_torch — {args.dataset}")
+        print(f"dashboard written to {args.plot}")
 
     print(f"{wtr.n_written} poses written to {args.output}")
     print("forensics:", {k: (round(v, 4) if isinstance(v, float) else v)
