@@ -17,9 +17,11 @@ Matches `pvio_tpu/core/initializer.py`: `Initializer` (`try_initialize`,
 
 The RANSACs, triangulation, PnP and BA run on the engine's device; the
 small least-squares solves stay numpy at float64 on host values fetched
-from the engine, as in the reference. The RANSAC keys come from the
-port's bit-exact `threefry.PRNGKey(config.random_seed)` / `split` stream,
-restarted by every new Initializer.
+from the engine, as in the reference. The two-view geometry (RANSACs,
+decompositions, hypothesis selection) runs in float64 whatever the
+engine's dtype, where the reference runs it at the engine's. The RANSAC
+keys come from the port's bit-exact `threefry.PRNGKey(config.random_seed)`
+/ `split` stream, restarted by every new Initializer.
 """
 
 import numpy as np
@@ -186,7 +188,12 @@ class Initializer:
         x1p[: len(cols)] = x1
         x2p[: len(cols)] = x2
         mp[: len(cols)] = True
-        x1j, x2j, mj = self._t(x1p, x2p, mp)
+        # the two-view geometry (RANSACs, decompositions, hypothesis
+        # selection) in float64 whatever the engine's dtype: in float32 its
+        # Gram-matrix eigh and degree-10 root scan turned rounding into
+        # device-dependent initializations (fault F4: the `synthetic` CLI's
+        # scale 0.23 on the card against 0.90 on the CPU)
+        x1j, x2j, mj = transfer.upload((x1p, x2p, mp), self.k.device, torch.float64)
         thr = 0.7 / fx
 
         H, _, _ = ransac_mod.find_homography(self._next_key(), x1j, x2j, mj, threshold=thr)
@@ -212,7 +219,8 @@ class Initializer:
                 dq_body = _quat_mul(dq_body, np.asarray(delta_rot.q[j]))
         q_ic = _quat_mul(_quat_conj(_q_np(cfg.q_bi)), _q_np(cfg.q_bc))
         q_cam = _quat_mul(_quat_mul(_quat_conj(q_ic), dq_body), q_ic)
-        (R_prior,) = self._t(np.asarray(nplie.quat_to_mat(_quat_conj(q_cam)), hw.dtype))
+        (R_prior,) = transfer.upload((nplie.quat_to_mat(_quat_conj(q_cam)),), self.k.device,
+                                     torch.float64)
 
         # hypothesis selection over the padded match set (masked points
         # have zero coords and do not triangulate)

@@ -18,12 +18,20 @@ is `counts` here: `plane_counts` summed over the track shards, passed to
 
 `_lm_step` is `linearize`, then `_schur_solve` (`_eliminate`: the
 landmark Schur complement's blocks; `_reduced_solve`: the Cholesky solve
-of the reduced camera system; `_depth_step`), then `_retract_cost` (the
-step and the cost at its end); the sharded solver reduces between those
-stages. A Cholesky failure gives a NaN step and a NaN cost, so the step
-is rejected, as with the reference's `cho_factor`.
+of the reduced camera system; `_depth_step`), then `_retract` and the cost
+at the step's end; the sharded solver reduces between those stages. A
+Cholesky failure gives a NaN step and a NaN cost, so the step is
+rejected, as with the reference's `cho_factor`.
 The LM loop is a Python loop that never waits on the device: accept or
 reject is a `torch.where` over every state field of the window.
+
+Each LM step linearizes, solves and costs in float64 whatever the window's
+dtype; only the step is applied at the window's dtype (the reference runs
+all of it at the window's dtype). After a marginalization the reduced
+system's eigenvalues span ~1e7, so a float32 Gram product or Cholesky
+decides the step along its weakest directions by rounding, and two
+devices that sum in other orders walk apart by millimetres in 8 steps.
+A float64 window computes exactly as before.
 """
 
 from typing import NamedTuple
@@ -418,17 +426,13 @@ def _retract(w: WindowState, dp, dd):
     return w_new
 
 
-def _retract_cost(w: WindowState, dp, dd, extr: Extrinsics, cfg: BAConfig):
-    """The window after the step, and the cost there."""
-    w_new = _retract(w, dp, dd)
-    return w_new, evaluate_cost(w_new, extr, cfg)
-
-
 def _lm_step(w: WindowState, extr: Extrinsics, cfg: BAConfig, lam):
-    H, Hpd, Hdd, b, bd, depth_active, cost0, m = linearize(w, extr, cfg)
+    """One LM step: (the window after it, float64 costs before and after)."""
+    e64 = win.as_float64(extr)
+    H, Hpd, Hdd, b, bd, depth_active, cost0, m = linearize(win.as_float64(w), e64, cfg)
     dp, dd = _schur_solve(H, Hpd, Hdd, b, bd, depth_active, m, lam)
-    w_new, cost1 = _retract_cost(w, dp, dd, extr, cfg)
-    return w_new, cost0, cost1
+    w_new = _retract(w, dp.to(w.p.dtype), dd.to(w.p.dtype))
+    return w_new, cost0, evaluate_cost(win.as_float64(w_new), e64, cfg)
 
 
 def _select(accept, new: WindowState, old: WindowState):
@@ -449,8 +453,8 @@ def solve(w: WindowState, extr: Extrinsics, cfg: BAConfig):
         w = _select(accept, w_new, w)
         costs0.append(cost0)
         accepts.append(accept)
-    info = {"initial_cost": costs0[0],
-            "final_cost": torch.where(accept, cost1, cost0),
+    info = {"initial_cost": costs0[0].to(w.p.dtype),
+            "final_cost": torch.where(accept, cost1, cost0).to(w.p.dtype),
             "accepted": torch.sum(torch.stack(accepts)),
             "lambda": lam}
     return w, info

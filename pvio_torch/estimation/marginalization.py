@@ -18,6 +18,15 @@ solve ever uses. Both decompositions go through `ops.eigh.eigh`:
 `torch.linalg.eigh` on the CPU, kernel E2 on the card (in float64), which
 reads nothing back to the host, where `torch.linalg.eigh` would read its
 error codes and make the marginalization wait for the device twice.
+
+`marginalize_and_remove` builds (H, b), the Schur complements and the
+decomposition in float64 whatever the window's dtype, and casts only the
+new prior back; the reference runs them at the window's dtype. In float32
+the victim's Schur complement cancels entries of ~1e7 down to eigenvalues
+of a few units, so its rounding (~1e2 there, negative eigenvalues of that
+size) picks the retained eigenspace, and two devices that sum in other
+orders keep different priors. In float64 that rounding sits ~1e9 below
+the smallest kept eigenvalue.
 """
 
 import torch
@@ -129,10 +138,11 @@ def marginalize_and_remove(w: WindowState, extr: Extrinsics, cfg: BAConfig,
                            index: int = 0) -> WindowState:
     """Marginalize frame slot `index` (a Python int) into the prior and
     compact the window. Re-basing the tracks whose reference is that slot is
-    the caller's (`rebase_tracks`)."""
+    the caller's (`rebase_tracks`). The prior is computed in float64 and
+    stored at the window's dtype."""
     F = w.kp.shape[0]
     dtype, dev = w.p.dtype, w.p.device
-    H, b = accumulate_information(w, extr, cfg, index)
+    H, b = accumulate_information(win.as_float64(w), win.as_float64(extr), cfg, index)
 
     sl = slice(index * 15, (index + 1) * 15)
     Hkk_inv = _clamped_pinv(H[sl, sl])
@@ -151,8 +161,8 @@ def marginalize_and_remove(w: WindowState, extr: Extrinsics, cfg: BAConfig,
     ok = lam > 1e-8
     lam_c = torch.where(ok, lam, 0.0)
     lam_inv = torch.where(ok, 1.0 / torch.where(ok, lam, 1.0), 0.0)
-    sqrt_info = torch.sqrt(lam_c)[:, None] * V.T
-    infovec = torch.sqrt(lam_inv)[:, None] * V.T @ b3.reshape(-1)
+    sqrt_info = (torch.sqrt(lam_c)[:, None] * V.T).to(dtype)
+    infovec = (torch.sqrt(lam_inv)[:, None] * V.T @ b3.reshape(-1)).to(dtype)
 
     def shift(a):
         return _shift_out(a, index)

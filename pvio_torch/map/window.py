@@ -84,6 +84,13 @@ class WindowState(NamedTuple):
     prior: MargPrior
 
 
+def as_float64(nt):
+    """A window, an extrinsics or any nested NamedTuple of tensors with its
+    floating fields in float64 (the same tensors when they are already)."""
+    return type(nt)(*(as_float64(x) if hasattr(x, "_fields") else
+                      (x.to(torch.float64) if x.is_floating_point() else x) for x in nt))
+
+
 def _unit_q(F, dtype, device):
     q = torch.zeros(F, 4, dtype=dtype, device=device)
     q[:, 0] = 1.0

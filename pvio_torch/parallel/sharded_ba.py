@@ -40,6 +40,7 @@ from torch.func import vmap
 from torch.utils import _pytree as pytree
 
 from pvio_torch.estimation import ba as ba_mod
+from pvio_torch.map import window as win
 from pvio_torch.map.window import Extrinsics, WindowState
 
 # the window fields on the track axis: (T,) and (F, T, ...)
@@ -153,8 +154,12 @@ def _lm_step_sharded(w: WindowState, lam, counts, extr: Extrinsics, cfg: ba_mod.
     """One LM step on a rank's block (B_local windows, its tracks): the
     reference's `_lm_step_sharded` with each `psum` an `all_reduce` over
     `group`. `counts` (B_local, P) are the plane member counts summed over
-    the group. Returns (w_new, cost0, cost1), costs global (B_local,)."""
-    w0 = w._replace(track_mask=torch.zeros_like(w.track_mask))
+    the group. Returns (w_new, cost0, cost1), costs global (B_local,) in
+    float64: like `ba._lm_step` it linearizes, solves and costs in float64
+    and applies the step at the window's dtype."""
+    dtype = w.p.dtype
+    w64, extr = win.as_float64(w), win.as_float64(extr)
+    w0 = w64._replace(track_mask=torch.zeros_like(w.track_mask))
     no_members = torch.zeros_like(counts)
     lin = vmap(lambda wx, c: ba_mod.linearize(wx, extr, cfg, counts=c))
     cost_of = vmap(lambda wx, c: ba_mod.evaluate_cost(wx, extr, cfg, counts=c))
@@ -164,7 +169,7 @@ def _lm_step_sharded(w: WindowState, lam, counts, extr: Extrinsics, cfg: ba_mod.
         c_frame = cost_of(wx._replace(track_mask=torch.zeros_like(wx.track_mask)), no_members)
         return c_frame + _all_reduce(c_local - c_frame, group)
 
-    H, Hpd, Hdd, b, bd, depth_active, cost_local, m = lin(w, counts)
+    H, Hpd, Hdd, b, bd, depth_active, cost_local, m = lin(w64, counts)
     H_f, _, _, b_f, _, _, cost_f, _ = lin(w0, no_members)
     # the frame factors once, the track parts summed over the group
     H_g = H_f + _all_reduce(H - H_f, group)
@@ -176,8 +181,8 @@ def _lm_step_sharded(w: WindowState, lam, counts, extr: Extrinsics, cfg: ba_mod.
     s = _all_reduce(s, group)
     dp = vmap(ba_mod._reduced_solve)(H_g, b_g, S, s, m, lam)
     dd = vmap(ba_mod._depth_step)(Hpd, bd, Hdd_inv, depth_active, dp)
-    w_new = vmap(ba_mod._retract)(w, dp, dd)
-    return w_new, cost0, total_cost(w_new)
+    w_new = vmap(ba_mod._retract)(w, dp.to(dtype), dd.to(dtype))
+    return w_new, cost0, total_cost(win.as_float64(w_new))
 
 
 def make_sharded_solver(mesh: ProcessMesh, extr: Extrinsics, cfg: ba_mod.BAConfig):
@@ -200,7 +205,7 @@ def make_sharded_solver(mesh: ProcessMesh, extr: Extrinsics, cfg: ba_mod.BAConfi
                               torch.clamp(lam * cfg.lm_lambda_down, min=cfg.lm_lambda_min),
                               torch.clamp(lam * cfg.lm_lambda_up, max=cfg.lm_lambda_max))
             w = vmap(ba_mod._select)(accept, w_new, w)
-        return w, cost1
+        return w, cost1.to(w.p.dtype)
 
     def solve(wb: WindowState):
         w, costs = solve_local(shard_window(wb, mesh))

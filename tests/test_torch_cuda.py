@@ -159,8 +159,9 @@ def test_keyframe_steps_on_card_match_cpu():
     the CPU at float64 to 1e-8, and at float32 checked to lower its cost.
     The test prints how far each device's float32 kf_step lies from the
     CPU's float64 one: on this window that distance is float32's own (the
-    CPU alone moves by about a tenth of a millimetre, PERF.md), so a float32
-    card-vs-CPU bound would measure float32, not the card."""
+    CPU alone moved by about a tenth of a millimetre, PERF.md; 1.2e-7 m
+    since the BA steps compute in float64), so a float32 card-vs-CPU bound
+    would measure float32, not the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import chip_smoke as cs
@@ -233,7 +234,10 @@ def test_kf_step_chained_is_kf_step_on_card():
 # and at most 2.8e-5 m until the first host decision differs, after frame
 # 25 (the second keyframe step after initialization: 6 observations and 1
 # track of the window). From there the trajectories step apart at keyframes,
-# 4.2e-3 -> 1.1e-2 -> 2.2e-2 m, ATE 0.118 vs 0.117 m. float64, the card's
+# 4.2e-3 -> 1.1e-2 -> 2.2e-2 m, ATE 0.118 vs 0.117 m. Since the
+# initializer's two-view geometry (fault F4), the marginalization and the BA
+# steps (fault F5) compute in float64: no decision differs, at most 3.1e-6
+# m over all 30 poses, ATE 0.098291 vs 0.098290 m. float64, the card's
 # pipelined depth 2 + chained run against the CPU's sequential one: no
 # decision differs, 6.2e-9 m. The bounds keep ~2-16x margin.
 MAX_FACADE_INIT_DP_M = 1e-4
