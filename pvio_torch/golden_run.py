@@ -19,7 +19,8 @@ them in an `.npz`.
 
 Its pieces are functions the tests call: `build_config`, `make_scene`,
 `render_images` (the pool, then `finish_frame`: noise, rounding and
-undistortion), `image_source` (the blackout), `drive` and `readout`.
+undistortion), `frames_key` (what the frames depend on, to cache them
+by), `image_source` (the blackout), `drive` and `readout`.
 """
 
 import argparse
@@ -174,6 +175,26 @@ def render_images(scene, cfg, args, frames=None, workers=None):
     noise_rng = np.random.default_rng(args.seed + 1)
     return [finish_frame(c, scene.frame_t[fi], args, noise_rng, und)
             for fi, c in zip(frames, counts)]
+
+
+def frames_key(args, scene):
+    """A key for the rendered frames of a run (`render_images`): a hash of
+    the scene's poses, the camera (intrinsics, extrinsics, distortion and
+    image size) and every flag that shapes the frames (the pixel noise and
+    its start, the texture seed, the noise stream's seed, the fps). Runs
+    that differ only in how they are solved (dtype, planes, gates) share a
+    key; the blackout is applied after the cache and is left out."""
+    import hashlib
+
+    cfg = build_config(args)
+    h = hashlib.sha256()
+    for a in (scene.p_wb, scene.q_wb, scene.frame_t, cfg.K, cfg.camera_distortion,
+              cfg.q_bc, cfg.p_bc):
+        h.update(np.ascontiguousarray(np.asarray(a, np.float64)).tobytes())
+    h.update(repr((tuple(cfg.image_size), cfg.camera_distortion_model,
+                   float(args.pixel_noise), float(args.noise_after), args.texture_seed,
+                   args.seed, float(args.fps))).encode())
+    return h.hexdigest()[:16]
 
 
 def load_or_render(scene, cfg, args):

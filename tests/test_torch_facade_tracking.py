@@ -32,10 +32,11 @@ MAX_DP_M = 1e-6
 MAX_KP_PX = 1e-9
 
 
-def run_port(scene, images):
-    """The port's facade over the stream, recording every raw frame, the
-    window it initialized with and the tracker's state after each call."""
-    vio = PVIO(small_config(), device="cpu")
+def run_port(scene, images, cfg=None):
+    """The port's facade over the stream (at `cfg`, `small_config()` by
+    default), recording every raw frame, the window it initialized with and
+    the tracker's state after each call."""
+    vio = PVIO(small_config() if cfg is None else cfg, device="cpu")
     ft = vio.core.feature_tracker
     raw, states, init = [], [], {}
     finish = ft.finish_frame

@@ -9,12 +9,27 @@ initialization frame and ms per `track_camera` call by state. The check
 functions take the device, so `tests/test_torch_golden_run.py` runs the
 same checks on the CPU (`slow`).
 
-The tests carry the `cuda` marker and skip without a card. The file imports
-no JAX, so it runs where only PyTorch is installed:
-`python -m pytest tests/test_torch_golden_card.py --noconftest -q -s`.
+The hard-mode comparison (`check_hard_mode_planes_beat_planes_off`) drives
+planes on and planes off over one render of the noisy frames. The 60 s
+endurance runs (`check_long_horizon_production_gates`) render once into `.artifacts/golden60_port_<key>.npz`, which the later cases and
+calls in the same checkout read back; each run also records the device
+memory every 100 frames after initialization (which must stay flat), the
+median ms per tracking and keyframe call in each quarter, the host waits
+per call (`utils/transfer.WAITS`) in the first and last quarters, and the
+kernels' launches over the run.
+
+The tests carry the `cuda` marker and skip without a card; the endurance
+cases are also `verylong`, which `pytest.ini`'s addopts deselect. The file
+imports no JAX, so it runs where only PyTorch is installed:
+`python -m pytest tests/test_torch_golden_card.py --noconftest -q -s`, and
+one endurance case a process with `-m "cuda and verylong" -k
+"long_horizon and float64 and planes_on"`.
 """
 
+import json
+import os
 import re
+import statistics
 
 import numpy as np
 import pytest
@@ -22,18 +37,20 @@ import torch
 
 from pvio_torch import golden_run
 
-# the rendered frames of each scene, shared by the runs that use the same one
+# the rendered frames of each scene, shared by the runs that use the same
+# ones, under golden_run.frames_key
 _IMAGES = {}
 # fault F4: the float32 `synthetic` CLI's ATE on the card, held to the golden
 # tier's bound (tests/test_golden_run.py:88) since the repair
 CLI_F32_MAX_ATE_M = 0.10
 
 
-def golden(argv, device, blackout_frames=None, on_frame=None):
+def golden(argv, device, blackout_frames=None, on_frame=None, cache_prefix=None):
     """One golden run on `device`: `argv` are golden_run's flags;
     `blackout_frames` (a range) feeds black frames there; `on_frame(vio,
-    scene, fi)` is called after each frame. Returns the
-    engine, the scene, the drive record and the readout."""
+    scene, fi)` is called after each frame; with `cache_prefix` the frames
+    are also kept on disk, in `<cache_prefix>_<frames key>.npz`. Returns
+    the engine, the scene, the drive record and the readout."""
     from pvio_torch import PVIO
 
     args = golden_run.parse_args(list(argv) + (["--cpu"] if device == "cpu" else []))
@@ -41,9 +58,15 @@ def golden(argv, device, blackout_frames=None, on_frame=None):
     scene = golden_run.make_scene(args)
     if blackout_frames is not None:
         args.blackout = (scene.frame_t[blackout_frames.start], scene.frame_t[blackout_frames.stop])
-    key = (args.config, args.duration, args.seed, args.traj_scale)
+    key = golden_run.frames_key(args, scene)
     if key not in _IMAGES:
-        _IMAGES[key] = golden_run.render_images(scene, cfg, args)
+        if cache_prefix is not None:
+            os.makedirs(os.path.dirname(cache_prefix), exist_ok=True)
+            args.cache_images = f"{cache_prefix}_{key}.npz"
+            _IMAGES.clear()                # one long stack in memory at a time
+            _IMAGES[key] = golden_run.load_or_render(scene, cfg, args)
+        else:
+            _IMAGES[key] = golden_run.render_images(scene, cfg, args)
     vio = PVIO(cfg, device=device)
     rec = golden_run.drive(vio, scene, golden_run.image_source(_IMAGES[key], scene, cfg, args),
                            on_frame=None if on_frame is None else lambda fi: on_frame(vio, scene, fi))
@@ -137,6 +160,170 @@ def check_blackout_reinit(device):
     assert np.isfinite(est).all()
 
 
+HARD_MODE = ["config/euroc.yaml", "--duration", "12", "--seed", "648", "--pixel-noise", "8",
+             "--noise-after", "3", "--max-kp", "100", "--fb", "4", "--kp-sigma", "1.5",
+             "--imu-noise", "1"]
+
+
+def check_hard_mode_planes_beat_planes_off(device, dtype):
+    """test_golden_hard_mode_planes_beat_planes_off, the paper's claim:
+    pixel noise sigma 8 after a clean 3 s initialization, a keypoint budget
+    of 100, a 4 px forward-backward gate, keypoint sigma 1.5 px and a noisy
+    IMU; planes on and planes off over the same frames, and planes on must
+    win."""
+    runs = {}
+    for planes in (True, False):
+        vio, _, rec, r = golden(HARD_MODE + ["--dtype", dtype] + ([] if planes else ["--no-planes"]),
+                                device)
+        runs[planes] = dict(initialized=vio.initialized, reinits=vio.core.frontend.n_reinits,
+                            poses=r["poses"], ate=r["ate"], scale=r["scale"],
+                            q0=r["quarters"][0][0], planes=len(vio.get_planes()),
+                            init_fi=rec["init_fi"])
+    on, off = runs[True], runs[False]
+    print(f"\nhard mode {dtype} on {device}: planes on ATE {on['ate']:.6f} m (first quarter "
+          f"{on['q0']:.6f}, scale {on['scale']:.6f}, {on['planes']} planes), planes off ATE "
+          f"{off['ate']:.6f} m (first quarter {off['q0']:.6f}, scale {off['scale']:.6f})")
+    for run in (on, off):
+        assert run["initialized"] and run["reinits"] == 0, run
+        assert run["poses"] >= 180, run["poses"]
+    assert on["ate"] < off["ate"], (
+        f"planes must WIN under degraded vision: ON {on['ate']:.4f} m vs OFF {off['ate']:.4f} m")
+    assert on["ate"] < 0.06, f"hard-mode planes-ON ATE {on['ate']} m"
+    assert off["ate"] < 0.12, f"hard-mode planes-OFF ATE {off['ate']} m (sanity)"
+    assert abs(on["scale"] - 1.0) < 0.05
+
+
+LONG_HORIZON = ["config/euroc.yaml", "--duration", "60", "--seed", "648", "--init-ramp", "0.3",
+                "--long-profile", "--max-scale", "1.0"]
+# the endurance frames on disk, shared by the cases and by later calls
+LONG_CACHE = os.path.join(".artifacts", "golden60_port")
+MEMORY_EVERY = 100           # frames between device-memory samples
+MAX_MEMORY_GROWTH = 1.05     # the peak after 30 s over the peak in 10-30 s
+
+
+def long_horizon_record(calls, waits, memory, n_frames):
+    """What only a long run shows, from the drive record's `calls`, the
+    host waits of each call and the memory samples [(t, bytes)]: the
+    median ms per tracking and keyframe call in each quarter of the frames,
+    the host waits per tracking and keyframe call in each quarter, and the
+    device memory's peaks between 10 s and 30 s and after 30 s."""
+    bounds = [round(k * n_frames / 4) for k in range(5)]
+    rec = dict(ms=[], waits=[])
+    for k in range(4):
+        seg = list(zip(calls, waits))[bounds[k]:bounds[k + 1]]
+        ms, per = {}, {}
+        for state in ("tracking", "keyframe"):
+            x = [(m, w) for (s, m), w in seg if s == state]
+            if x:
+                ms[state] = (statistics.median(m for m, _ in x), len(x))
+                per[state] = sum(w for _, w in x) / len(x)
+        rec["ms"].append(ms)
+        rec["waits"].append(per)
+    mid = [b for t, b in memory if 10.0 <= t <= 30.0]
+    late = [b for t, b in memory if t > 30.0]
+    rec["memory"] = memory
+    rec["memory_peak_10_30"] = max(mid) if mid else None
+    rec["memory_peak_after_30"] = max(late) if late else None
+    return rec
+
+
+def check_long_horizon_production_gates(device, dtype, planes):
+    """test_golden_long_horizon_production_gates: the 60 s EuRoC-shaped run
+    (drifting loops, an aggressive yaw/pitch burst at 25-35 s) with the
+    init scale gate at its production 1.0, over one render of the frames.
+    Its contract clause by clause: initialized at the end, at most one
+    health re-init, >= 900 finite poses; the first 30 s >= 500 poses, ATE
+    < 0.20 m, scale within 0.05; without a re-init the whole run's ATE <
+    0.60 m and scale within 0.10; with one, the segment from 1 s after the
+    recovery (the last output gap > 0.5 s, before 56 s) >= 40 poses, ATE <
+    0.30 m and scale within 0.10, or the reference's own xfail. On the card
+    the device memory after 30 s stays within MAX_MEMORY_GROWTH of its
+    peak between 10 s and 30 s."""
+    from pvio_torch.geometry import wahba
+    from pvio_torch.ops import eigh as eigh_op
+    from pvio_torch.ops import poisson, stencil
+    from pvio_torch.utils import transfer
+
+    waits, memory, first = [], [], []
+    last_waits = [transfer.WAITS]
+
+    def on_frame(vio, scene, fi):
+        waits.append(transfer.WAITS - last_waits[0])
+        last_waits[0] = transfer.WAITS
+        if vio.initialized and not first:
+            first.append(fi)
+        if first and device != "cpu" and (fi - first[0]) % MEMORY_EVERY == 0:
+            memory.append((float(scene.frame_t[fi]), torch.cuda.memory_allocated()))
+
+    stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
+    eigh_op.BLOCK_LAUNCHES.clear()
+    vio, scene, rec, r = golden(
+        LONG_HORIZON + ["--dtype", dtype] + ([] if planes else ["--no-planes"]), device,
+        on_frame=on_frame, cache_prefix=LONG_CACHE)
+    launches = dict(shi_tomasi=stencil.LAUNCHES, poisson_select=poisson.LAUNCHES,
+                    sym_eig=eigh_op.LAUNCHES,
+                    sym_eig_block={int(n): c for n, c in sorted(eigh_op.BLOCK_LAUNCHES.items())})
+
+    t2idx = {round(t, 6): i for i, t in enumerate(scene.frame_t)}
+
+    def seg_ate(traj, lo, hi):
+        kept = [(t, p) for (t, q, p) in traj if lo <= t < hi and t2idx.get(round(t, 6)) is not None]
+        if len(kept) < 20:
+            return None, None, len(kept)
+        est = torch.as_tensor(np.array([p for _, p in kept]), dtype=torch.float64)
+        gt = torch.as_tensor(np.array([scene.p_wb[t2idx[round(t, 6)]] for t, _ in kept]),
+                             dtype=torch.float64)
+        s, _, _ = wahba.find_srt(est, gt)
+        return float(wahba.ate_rmse(est, gt, with_scale=False)), float(s), len(kept)
+
+    traj = vio.get_trajectory()
+    ts = [t for (t, q, p) in traj]
+    reinits = vio.core.frontend.n_reinits
+    first30 = seg_ate(traj, 0.0, 30.0)
+    gaps = [(ts[i], ts[i + 1]) for i in range(len(ts) - 1) if ts[i + 1] - ts[i] > 0.5]
+    t_rec = gaps[-1][1] if gaps else None
+    whole = seg_ate(traj, 0.0, 60.0)
+    post = seg_ate(traj, t_rec + 1.0, 60.0) if t_rec is not None else (None, None, 0)
+    out = dict(device=device, dtype=dtype, planes=planes, initialized=vio.initialized,
+               reinits=reinits, poses=len(traj), init_fi=rec["init_fi"],
+               n_planes=len(vio.get_planes()), first30=first30, whole=whole, t_rec=t_rec,
+               post=post, quarters=r["quarters"], kf_steps=rec["kf_steps"], launches=launches,
+               **long_horizon_record(rec["calls"], waits, memory, rec["n_frames"]))
+    print("\nlong horizon " + json.dumps(out))
+
+    assert vio.initialized, f"planes={planes}: must end initialized"
+    assert reinits <= 1, f"planes={planes}: at most one health re-init, got {reinits}"
+    assert len(traj) >= 900, (planes, len(traj))
+    assert np.isfinite(np.array([p for (_, _, p) in traj])).all()
+    if device != "cpu":
+        assert out["memory_peak_10_30"] is not None and out["memory_peak_after_30"] is not None
+        assert out["memory_peak_after_30"] <= MAX_MEMORY_GROWTH * out["memory_peak_10_30"], (
+            f"device memory grew: {out['memory_peak_10_30']} B at most in 10-30 s, "
+            f"{out['memory_peak_after_30']} B after")
+    a, s1, n = first30
+    assert n >= 500, (planes, n)
+    assert a < 0.20, f"planes={planes} first-30s ATE {a} m"
+    assert abs(s1 - 1.0) < 0.05, f"planes={planes} first-30s scale {s1}"
+    if reinits == 0:
+        a, s2, n = whole
+        assert a < 0.60, f"planes={planes} full-run ATE {a} m"
+        assert abs(s2 - 1.0) < 0.10, f"planes={planes} full scale {s2}"
+    else:
+        assert gaps, f"planes={planes}: re-init without output gap?"
+        assert t_rec < 56.0, f"planes={planes}: recovery too late ({t_rec:.1f}s)"
+        a, s2, n = post
+        assert n >= 40, (planes, n)
+        if not (a < 0.30 and abs(s2 - 1.0) < 0.10):
+            # the reference's own expected failure (tests/test_golden_run.py:
+            # 423-440): a re-init in the low-excitation pause estimates gravity
+            # ~2 deg off, the window absorbs the tilt into an accel bias, and
+            # the estimate drifts once the rotation resumes
+            pytest.xfail(
+                f"planes={planes}: post-recovery gauge diverged "
+                f"(ATE {a:.2f} m, scale {s2:.3f}) — known-open tilt/"
+                f"bias ambiguity of a low-excitation re-init")
+
+
 def synthetic_cli(device, fast, capsys):
     """`python -m pvio_torch.run synthetic --dtype float32 [--fast]`: the ATE
     (m) and the poses it prints."""
@@ -198,3 +385,20 @@ def test_synthetic_float32_cli_on_card(fast, capsys):
     print(f"synthetic float32 {'--fast' if fast else 'sequential'} on the card: ATE {ate} m "
           f"over {poses} poses")
     assert ate < CLI_F32_MAX_ATE_M, ate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_golden_hard_mode_on_card(dtype):
+    needs_card()
+    check_hard_mode_planes_beat_planes_off("cuda", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.verylong
+@pytest.mark.parametrize("dtype,planes", [("float64", True), ("float64", False),
+                                          ("float32", True)],
+                         ids=["float64-planes_on", "float64-planes_off", "float32-planes_on"])
+def test_golden_long_horizon_on_card(dtype, planes):
+    needs_card()
+    check_long_horizon_production_gates("cuda", dtype, planes)

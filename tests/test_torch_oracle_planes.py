@@ -37,8 +37,9 @@ MAX_DP_M = 1e-6
 MAX_PLANE_TOL = 1e-8
 
 
-def pipeline_plane_config(cls=None):
-    """`test_pipeline_with_planes`'s configuration as a Config of `cls`."""
+def pipeline_plane_config(cls=None, **kw):
+    """`test_pipeline_with_planes`'s configuration as a Config of `cls`,
+    with the fields in `kw` set."""
     cfg = plane_config() if cls is None else plane_config(cls)
     cfg.initializer_keyframe_gap = 4
     cfg.initializer_min_matches = 20
@@ -48,6 +49,8 @@ def pipeline_plane_config(cls=None):
     cfg.keyframe_min_common_tracks = 20
     cfg.keyframe_parallax_px = 25.0
     cfg.feature_tracker_max_keypoint_detection = 120
+    for k, v in kw.items():
+        setattr(cfg, k, v)
     return cfg
 
 
@@ -61,12 +64,22 @@ def plane_state(swt):
 
 
 def test_oracle_pipeline_with_planes_matches_reference():
-    cfg = pipeline_plane_config()
+    check_oracle_planes()
+
+
+def check_oracle_planes(kp_noise_px=0.3, imu_noise=0.0, **cfg_kw):
+    """The port against the reference on the plane scene's oracle features
+    with `kp_noise_px` of keypoint noise, the IMU noise scaled by
+    `imu_noise` (gyro 1e-3, accel 1e-2 at 1) and the Config fields in
+    `cfg_kw`; the oracle keeps the config's keypoint budget."""
+    cfg = pipeline_plane_config(**cfg_kw)
     scene = synthetic.make_scene(duration=3.0, fps=20.0, imu_rate=200.0, n_points=60,
-                                 n_plane_points=130, plane_z=4.6, seed=648)
+                                 n_plane_points=130, plane_z=4.6, seed=648,
+                                 gyro_noise=1e-3 * imu_noise, accel_noise=1e-2 * imu_noise)
     kern = DeviceKernels(cfg, device="cpu")
-    oracle = synthetic.OracleFeatureSource(scene, cfg.K, cfg.image_size, max_keypoints=120,
-                                           kp_noise_px=0.3)
+    oracle = synthetic.OracleFeatureSource(scene, cfg.K, cfg.image_size,
+                                           max_keypoints=cfg.feature_tracker_max_keypoint_detection,
+                                           kp_noise_px=kp_noise_px)
     fw = FrontendWorker(cfg, kern, oracle,
                         plane_extractor_factory=lambda: PlaneExtractor(cfg, kern))
     states, init_fi, init_window = [], None, None
@@ -82,7 +95,7 @@ def test_oracle_pipeline_with_planes_matches_reference():
     assert fw.swt.planes.next_plane_id >= 1 and n_tracks >= 10, n_tracks
     assert any(s["plane_mask"].any() for s in states)
 
-    cfg_ref = pipeline_plane_config(RefConfig)
+    cfg_ref = pipeline_plane_config(RefConfig, **cfg_kw)
     kern_ref = RefKernels(cfg_ref)
     first = init_fi + 1
     frames = list(oracle.frames)
