@@ -8,7 +8,11 @@ Matches `pvio_tpu/core/plane_extractor.py`: `_refine_plane_pca_np` and
 `_set_landmark`, `merge_planes`, `update_parameters` with both branches of
 `plane_estimate_in_solver`, and `plane_track_points`). The bookkeeping is
 host numpy, as in the reference, with the same formulas (`np.linalg.eigh`,
-`np.median`, `np.maximum.at`, first-index `np.argmin` ties).
+`np.median`, `np.maximum.at`, first-index `np.argmin` ties), with one
+difference: `update_parameters` builds a plane's polar extent only from the
+members whose fresh triangulation is valid, where the reference also takes
+the undefined point of a member seen from one window slot, which its
+eigensolver picks anywhere on the member's ray.
 
 Only the 3-point RANSAC (`frontend/ransac.find_plane`) runs on the
 kernels' device. Its key stream is the reference's: `PRNGKey(random_seed +
@@ -517,6 +521,12 @@ class PlaneExtractor:
         for s in np.nonzero(hw.plane_mask)[0]:
             m = (hw.plane_id == s) & well
             members = (hw.plane_id == s) & hw.track_mask
+            # the polar extent is built from the members whose fresh
+            # triangulation passed its gate: a member seen from one slot
+            # has a rank-2 DLT, whose eigenvector is any point of its ray
+            # (the reference takes that point into the extent too,
+            # pvio_tpu/core/plane_extractor.py:586-590, :607)
+            placed = members & ok
             if in_solver:
                 # Re-anchor the plane to the CURRENT gauge. A VIO window
                 # drifts in its unobservable directions (yaw +
@@ -566,12 +576,12 @@ class PlaneExtractor:
                         upd = np.nonzero(mf)[0][inl_loc]
                         hw.inv_depth[upd] = inv_d[upd]
                 # the host maintains the polar extent from member points
-                if members.sum() >= 3:
-                    cog = pts_np[members].mean(axis=0)
+                if placed.sum() >= 3:
+                    cog = pts_np[placed].mean(axis=0)
                     basis = nplie.s2_tangential_basis(hw.plane_normal[s])
                     self.areas[s] = sa.insert(
                         sa.SectorArea.empty(np.array(cog), basis),
-                        pts_np[members])
+                        pts_np[placed])
                 continue
             if m.sum() < 50:
                 continue  # plane.cpp:74 — no refit without strong evidence
@@ -588,7 +598,7 @@ class PlaneExtractor:
             basis = nplie.s2_tangential_basis(n2)
             # built directly at the member centroid — already centralized
             self.areas[s] = sa.insert(
-                sa.SectorArea.empty(np.array(cog), basis), pts_np[members])
+                sa.SectorArea.empty(np.array(cog), basis), pts_np[placed])
 
     # ------------------------------------------------------------------
     def plane_track_points(self, w_dev, x_world):

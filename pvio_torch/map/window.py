@@ -233,8 +233,9 @@ def _triangulate(q_ws, p_ws, kp, obs, ref_frame):
 def triangulate_tracks(w: WindowState, extr: Extrinsics):
     """Multi-view DLT of every track column from the current window poses.
     Returns (pts (T, 3) world points, inv_d (T,) in the reference frame,
-    ok (T,) cheirality/depth gate). Invalid columns' points depend on
-    `eigh`'s arbitrary sign; compare them by their flag only."""
+    ok (T,) cheirality/depth gate). Invalid columns' points are undefined
+    (a column seen from one slot has a 2-D null space, its whole ray):
+    read them only where ok."""
     q_ws, p_ws = _camera_poses(w.q, w.p, extr)
     return _triangulate(q_ws, p_ws, w.kp, w.obs_mask & w.frame_mask[:, None], w.ref_frame)
 

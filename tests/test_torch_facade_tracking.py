@@ -32,10 +32,15 @@ MAX_DP_M = 1e-6
 MAX_KP_PX = 1e-9
 
 
-def run_port(scene, images, cfg=None):
+def latest_state(swt):
+    return tuple(np.array(x) for x in swt.latest_state)
+
+
+def run_port(scene, images, cfg=None, record=latest_state):
     """The port's facade over the stream (at `cfg`, `small_config()` by
     default), recording every raw frame, the window it initialized with and
-    the tracker's state after each call."""
+    `record(tracker)` after each call after the initializing one (the
+    tracker's latest state by default)."""
     vio = PVIO(small_config() if cfg is None else cfg, device="cpu")
     ft = vio.core.feature_tracker
     raw, states, init = [], [], {}
@@ -55,7 +60,7 @@ def run_port(scene, images, cfg=None):
         if not init:
             init.update(fi=fi, window=window_fields(swt.hw))
         else:
-            states.append(tuple(np.array(x) for x in swt.latest_state))
+            states.append(record(swt))
 
     drive(vio, scene, images, after_call=after_call)
     return vio, raw, init, states

@@ -12,12 +12,23 @@ to 40, over the blob stream of `test_torch_facade_tracking.py`: 8-bit
 frames, clean through the initializing frame (28) and noised with sigma 8
 counts from NOISE_AFTER on, from `default_rng(NOISE_SEED)`.
 
-`pvio_torch.PVIO(device="cpu")` runs the whole stream. The reference's
-`FeatureTracker` tracks the same images with the same IMU spans and must
-give the same raw frames (masks and track ids identical, keypoints within
-1e-9 px); its `SlidingWindowTracker` starts from the port's initialized
-window and must take the same keyframes and agree with the port's states
-on every frame within 1e-6 m. One compilation of the reference's path.
+`lockstep` holds the two packages together step by step on any
+configuration and frames; `tests/test_torch_hard_mode_full.py` runs it at
+the golden hard mode's own size and frames. `pvio_torch.PVIO(device="cpu")`
+runs the whole stream. The reference's `FeatureTracker` tracks the same
+images with the same IMU spans and must give the same raw frames (masks
+and track ids identical, keypoints within 1e-9 px); its
+`SlidingWindowTracker` (with a fresh `PlaneExtractor` when planes are on,
+as the port's is at that point) starts from the port's initialized window
+and must, after every call, have taken the same keyframes, agree with the
+port's state within 1e-6 m and have made the same plane decisions
+(`plane_state`: plane masks and ids, the tracks' plane ids and flags
+identical; normals, distances and the planes' polar extents within 1e-8).
+The reference's extractor builds its extents from the members with a
+valid fresh triangulation, as the port's does
+(`test_torch_planes.extent_from_valid_members`): the point of a member seen
+from one window slot is undefined, and the two eigensolvers pick different
+points of its ray. One compilation of the reference's path.
 
 On noisy frames the KLT solve amplifies rounding: the two trackers left to
 run free part by ~1e-12 px at the first noisy frame and by ~2e-8 px twenty
@@ -33,10 +44,13 @@ import numpy as np
 
 from tests.test_torch_facade_tracking import MAX_DP_M, MAX_KP_PX, run_port
 from tests.test_torch_harness import small_config
+from tests.test_torch_oracle_planes import MAX_PLANE_TOL, plane_state
+from tests.test_torch_planes import extent_from_valid_members
 from tests.test_torch_oracle_pipeline import ref_window
 
 from pvio_tpu.core.feature_tracker import FeatureTracker as RefFeatureTracker
 from pvio_tpu.core.kernels import DeviceKernels as RefKernels
+from pvio_tpu.core.plane_extractor import PlaneExtractor as RefExtractor
 from pvio_tpu.core.swt import SlidingWindowTracker as RefSWT
 from pvio_tpu.io.config import Config as RefConfig
 from pvio_torch.io import synthetic
@@ -46,6 +60,7 @@ NOISE_SIGMA = 8.0      # 8-bit counts, as the golden hard mode
 NOISE_SEED = 649
 HARD = dict(feature_tracker_max_keypoint_detection=40, feature_tracker_fb_threshold=4.0,
             camera_noise_cov=np.eye(2) * 1.5 ** 2)
+PLANE_DECISIONS = ("plane_mask", "plane_ids", "plane_id", "tf_plane")
 
 
 def hard_config(cls=None):
@@ -67,40 +82,99 @@ def hard_stream(duration=2.5):
     return scene, images
 
 
-def test_hard_mode_tracking_matches_reference_on_noisy_images():
-    scene, images = hard_stream()
-    vio, raw, init, states = run_port(scene, images, hard_config())
-    assert vio.initialized and vio.core.frontend.n_reinits == 0
-    assert scene.frame_t[init["fi"]] < NOISE_AFTER <= scene.frame_t[init["fi"] + 1]
-    assert len(raw) == len(images) and len(states) == len(images) - 1 - init["fi"] >= 20
+def step_state(swt):
+    """What the two trackers are held to after a call: the plane decisions
+    and values (`plane_state`), the planes' polar extents, the whole latest
+    state and the keyframes."""
+    st = plane_state(swt)
+    areas = {} if swt.planes is None else swt.planes.areas
+    st.update(state=tuple(np.array(x) for x in swt.latest_state), n_keyframes=swt.n_keyframes,
+              areas={int(k): np.concatenate([np.ravel(x) for x in a]) for k, a in areas.items()})
+    return st
 
-    cfg_ref = hard_config(RefConfig)
+
+def lockstep(scene, images, cfg, cfg_ref, free_frontend=False):
+    """The port's facade at `cfg` over the scene's IMU and `images`, and the
+    reference's trackers at `cfg_ref` held to it step by step (see the
+    module's docstring); the first call that parts fails, naming its frame.
+    Returns the port's engine, the initializing frame, the keyframes, the
+    largest |dp| (m) and the largest of |dn|, |dd| and the extents'
+    difference after each call, the largest keypoint
+    gap (px) of each frame, and both trackers' states after each call from
+    the initializing one on as trajectories [(t, q, p)]. With
+    `free_frontend` a second reference `FeatureTracker` tracks the same
+    frames left free, and the record adds its largest keypoint gap to the
+    port's raw frames on each frame before their masks or ids first differ,
+    and that frame (`free_parts`, None if they never do)."""
+    planes = cfg.enable_plane_constraint
+    vio, raw, init, states = run_port(scene, images, cfg, record=step_state)
+    assert vio.initialized and vio.core.frontend.n_reinits == 0
+    assert len(raw) == len(images) and len(states) == len(images) - 1 - init["fi"]
+
     kern = RefKernels(cfg_ref)
     ft = RefFeatureTracker(cfg_ref, kern)
-    swt, ref_states = None, []
+    free = RefFeatureTracker(cfg_ref, kern) if free_frontend else None
+    free_gap, free_parts = [], None
+    swt, dp, dn, dkp = None, [], [], []
+    port_traj, ref_traj = [], []
     for fi, rf in enumerate(raw):
+        if free is not None:
+            f = free.track_frame(rf.id, rf.t, images[fi], rf.imu_ts, rf.imu_w, rf.imu_a)
+            free.initialized = fi >= init["fi"]
+            if np.array_equal(f.kp_mask, rf.kp_mask) and np.array_equal(f.track_ids, rf.track_ids):
+                gap = np.abs(f.kp[f.kp_mask] - rf.kp[rf.kp_mask])
+                free_gap.append(float(gap.max()) if gap.size else 0.0)
+            else:
+                free, free_parts = None, fi
         if fi > 0:
             ft._kp_dev = jnp.asarray(raw[fi - 1].kp)
         r = ft.track_frame(rf.id, rf.t, images[fi], rf.imu_ts, rf.imu_w, rf.imu_a)
         assert r.t == rf.t
         np.testing.assert_array_equal(r.kp_mask, rf.kp_mask, err_msg=f"frame {fi}")
         np.testing.assert_array_equal(r.track_ids, rf.track_ids, err_msg=f"frame {fi}")
+        gap = np.abs(r.kp[r.kp_mask] - rf.kp[rf.kp_mask])
+        dkp.append(float(gap.max()) if gap.size else 0.0)
         np.testing.assert_allclose(r.kp[r.kp_mask], rf.kp[rf.kp_mask], rtol=0, atol=MAX_KP_PX,
                                    err_msg=f"frame {fi}")
         if fi == init["fi"]:
-            swt = RefSWT(cfg_ref, kern, ref_window(init["window"]), ft)
+            swt = RefSWT(cfg_ref, kern, ref_window(init["window"]), ft,
+                         extent_from_valid_members(RefExtractor(cfg_ref, kern)) if planes
+                         else None)
             ft.initialized = True
+            t, q, p = swt.latest_state[:3]
+            port_traj.append((t, np.array(q), np.array(p)))
+            ref_traj.append((t, np.array(q), np.array(p)))
         elif swt is not None:
             assert swt.track(r), f"the reference lost tracking at frame {fi}"
-            ref_states.append(swt.latest_state)
-    assert swt.n_keyframes == vio.core.frontend.swt.n_keyframes >= 3
-    assert len(ref_states) == len(states)
-    dp = 0.0
-    for a, b in zip(states, ref_states):
-        assert a[0] == b[0]
-        dp = max(dp, float(np.abs(a[2] - np.asarray(b[2])).max()))
-        for x, y in zip(a[1:], b[1:]):
-            np.testing.assert_allclose(x, np.asarray(y), rtol=0, atol=MAX_DP_M)
+            a, b = states[fi - 1 - init["fi"]], step_state(swt)
+            assert a["t"] == b["t"] and a["n_keyframes"] == b["n_keyframes"], (
+                f"frame {fi}: keyframes {a['n_keyframes']} (port) vs {b['n_keyframes']}")
+            for name in PLANE_DECISIONS:
+                np.testing.assert_array_equal(a[name], b[name], err_msg=f"frame {fi}: {name}")
+            dp.append(float(np.abs(a["p"] - np.asarray(b["p"])).max()))
+            assert sorted(a["areas"]) == sorted(b["areas"]), f"frame {fi}: extents"
+            dn.append(max([float(np.abs(a[k] - b[k]).max()) for k in ("normal", "distance")
+                           if len(b[k])]
+                          + [float(np.abs(a["areas"][k] - b["areas"][k]).max()) for k in b["areas"]],
+                          default=0.0))
+            for x, y in zip(a["state"][1:], b["state"][1:]):
+                np.testing.assert_allclose(x, np.asarray(y), rtol=0, atol=MAX_DP_M,
+                                           err_msg=f"frame {fi}")
+            assert dn[-1] <= MAX_PLANE_TOL, (fi, dn[-1])
+            port_traj.append((a["t"], a["state"][1], a["state"][2]))
+            ref_traj.append((b["t"], np.array(b["state"][1]), np.array(b["state"][2])))
+    assert swt.n_keyframes == vio.core.frontend.swt.n_keyframes
+    return dict(vio=vio, init_fi=init["fi"], n_keyframes=swt.n_keyframes, dp=dp, dn=dn, dkp=dkp,
+                port_traj=port_traj, ref_traj=ref_traj, free_gap=free_gap, free_parts=free_parts)
+
+
+def test_hard_mode_tracking_matches_reference_on_noisy_images():
+    scene, images = hard_stream()
+    run = lockstep(scene, images, hard_config(), hard_config(RefConfig))
+    init_fi, n_noisy = run["init_fi"], len(run["dp"])
+    assert scene.frame_t[init_fi] < NOISE_AFTER <= scene.frame_t[init_fi + 1]
+    assert n_noisy >= 20 and run["n_keyframes"] >= 3
+    dp = max(run["dp"])
     assert dp <= MAX_DP_M, dp
-    print(f"hard mode vs the reference: initialized at frame {init['fi']}, {len(states)} noisy "
-          f"frames after it, {swt.n_keyframes} keyframes, max |dp| {dp:.3e} m")
+    print(f"hard mode vs the reference: initialized at frame {init_fi}, {n_noisy} noisy "
+          f"frames after it, {run['n_keyframes']} keyframes, max |dp| {dp:.3e} m")

@@ -7,7 +7,10 @@ plane_z=4.6, seed=648)`), projected keypoints with 0.3 px noise.
 The port runs the whole stream with its `PlaneExtractor`. The reference's
 `SlidingWindowTracker`, with a fresh reference `PlaneExtractor` (the port's
 is fresh at that point too), starts from the port's initialized window, as
-`test_torch_oracle_pipeline.py` does, and tracks the rest of the stream.
+`test_torch_oracle_pipeline.py` does, and tracks the rest of the stream;
+it builds its planes' polar extents from the members with a valid fresh
+triangulation, as the port's does (`test_torch_planes.
+extent_from_valid_members`).
 They must make the same keyframe decisions and, after every call, the
 same plane decisions (`plane_mask`, `plane_ids`, the tracks' `plane_id`
 and TF_PLANE flags), with plane normals and distances within
@@ -20,7 +23,7 @@ import numpy as np
 
 from tests.test_torch_oracle_pipeline import _Frames, imu_span, ref_window
 from tests.test_torch_initializer import window_fields
-from tests.test_torch_planes import plane_config
+from tests.test_torch_planes import extent_from_valid_members, plane_config
 
 from pvio_tpu.core.feature_tracker import RawFrame as RefRawFrame
 from pvio_tpu.core.kernels import DeviceKernels as RefKernels
@@ -102,7 +105,7 @@ def check_oracle_planes(kp_noise_px=0.3, imu_noise=0.0, **cfg_kw):
     ref_frames = [RefRawFrame(f.id, f.t, f.kp, f.kp_mask, f.track_ids, f.imu_ts, f.imu_w, f.imu_a)
                   for f in frames[:first]]
     swt_ref = RefSWT(cfg_ref, kern_ref, ref_window(init_window), _Frames(ref_frames),
-                     RefExtractor(cfg_ref, kern_ref))
+                     extent_from_valid_members(RefExtractor(cfg_ref, kern_ref)))
     ref_states = [plane_state(swt_ref)]
     for rf in frames[first:]:
         rf = RefRawFrame(rf.id, rf.t, rf.kp.copy(), rf.kp_mask.copy(), rf.track_ids.copy(),

@@ -276,6 +276,60 @@ def test_update_parameters_matches_reference(in_solver, with_fresh):
     assert np.array_equal(np.asarray(pe._key), key0) == in_solver
 
 
+def extent_from_valid_members(pe_ref):
+    """Make the reference extractor build its polar extents as the port's
+    does (`ROADMAP.md` §3): its `update_parameters` sees a member whose
+    fresh triangulation failed its gate as no member, for that call. Such a
+    member's point is undefined (seen from one slot its DLT leaves its whole
+    ray), and the reference's extent reads it."""
+    real = pe_ref.update_parameters
+
+    def update_parameters(hw, fresh=None):
+        if fresh is None:
+            return real(hw, fresh)
+        undefined = hw.track_mask & (hw.plane_id >= 0) & ~np.asarray(fresh[2], bool)
+        held = hw.plane_id[undefined].copy()
+        hw.plane_id[undefined] = -1
+        try:
+            return real(hw, fresh=fresh)
+        finally:
+            hw.plane_id[undefined] = held
+
+    pe_ref.update_parameters = update_parameters
+    return pe_ref
+
+
+@pytest.mark.parametrize("in_solver", [True, False])
+def test_update_parameters_extent_skips_undefined_points(in_solver):
+    """Three members whose fresh triangulation failed its gate, holding
+    arbitrary points (as a member seen from one slot does: any point of its
+    ray): the port's planes and extents are the same whatever those points
+    are, and equal the reference's with the three out of the plane."""
+    pe, hw, pe_ref, hw_ref = detected(plane_estimate_in_solver=in_solver)
+    for h in (hw, hw_ref):
+        h.track_life = h.track_life + 15
+    fresh = list(_fresh(hw, kernels()[0]))
+    s = int(np.nonzero(hw.plane_mask)[0][0])
+    cols = np.nonzero((hw.plane_id == s) & hw.track_mask & fresh[2])[0][[1, 7, 13]]
+    fresh[2] = fresh[2].copy()
+    fresh[2][cols] = False
+    runs = []
+    for seed in (5, 6):
+        pts = fresh[0].copy()
+        pts[cols] = np.random.default_rng(seed).normal(size=(3, 3)) * 5.0
+        pe_k, hw_k = copy.copy(pe), copy.deepcopy(hw)
+        pe_k.areas = dict(pe.areas)
+        pe_k.update_parameters(hw_k, fresh=(pts,) + tuple(fresh[1:]))
+        runs.append((pe_k, hw_k))
+    extent_from_valid_members(pe_ref).update_parameters(hw_ref, fresh=(pts,) + tuple(fresh[1:]))
+    assert (hw_ref.plane_id[cols] == s).all()
+    for pe_k, hw_k in runs:
+        assert_same_planes(pe_k, hw_k, pe_ref, hw_ref, "update_parameters")
+    a, b = (r[0].areas[s] for r in runs)
+    for f in ("center", "basis", "radii"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+
+
 def test_async_detection_matches_reference():
     """issue_detection -> (the fetch) -> store_pending_result ->
     promote_pending, against the reference's, and the port's pending
