@@ -20,6 +20,34 @@ at float64 and compares the detections each gives (`check {...}` lines;
 the frames are rendered alone, so their noise stream starts at the first
 noisy frame given).
 Without a card it stops unless given `--cpu`.
+
+    python3 golden_spread.py --long [--dtype float64] [--no-planes] [--cpu [--emulate-card]]
+    python3 golden_spread.py --twin-from 44 [--dtype float64] [--no-planes]
+
+`--long` runs the 60 s endurance case of the card test
+(`long_horizon_run`, `LONG_HORIZON`, its frame cache) and prints its
+record as one JSON line (`long {...}`), with the landmark-starvation
+backstop's decision at every keyframe from 44 s on. With `--cpu
+--emulate-card` the CPU engine takes the card's algorithms where its plain
+versions differ (`emulate_card`): K1's response computed in float32, E1's
+and E2's Jacobi (`ops/eigh.py::jacobi_model`) for `torch.linalg.eigh`, and
+the card's struct-of-arrays preintegration bank in the BA. `--twin-from T`
+runs that case on the card and, from the first call at or after T s, a
+twin of its tracker on the CPU (with E1, E2 and the bank emulated) that
+tracks the card's own raw frames: at each call both backstops' records,
+the largest |dp| between the two windows and the fields of the windows
+whose discrete values differ (`twin {...}` lines, and a `twin-summary`
+line naming the first call at which a discrete field differs). When the
+card declares tracking lost the twin must too; at the card's next
+initializing call the twin starts again from the card's window; with
+`--twin-own-init` it re-initializes on its own instead (a CPU initializer
+on the card's raw frames), and the lines say at which call each of the two
+initialized.
+`--record-from T [--record-out PATH]` records the card's run from T s (its
+raw frames, its tracker's state at T and at each re-initialization, the
+backstop's records) for `tests/test_torch_long_horizon_full.py::
+test_reference_replays_the_card`, which replays the reference's tracker
+on the card's own inputs on the CPU.
 """
 
 import argparse
@@ -73,6 +101,342 @@ def response_check(frames, device):
         print("check " + json.dumps(out), flush=True)
 
 
+def jacobi_eigh(A):
+    """`ops.eigh.eigh` with the card's algorithms on CPU tensors: E1's
+    Jacobi (`jacobi_model` at n = 4, a batch at a time: a matrix stops at
+    the sweep where the model stops), E2's for 5 <= n <= N_MAX (one matrix
+    at a time), `torch.linalg.eigh` for any other n; CUDA tensors go to the
+    real wrapper."""
+    import torch
+
+    from pvio_torch.ops import eigh as eigh_op
+
+    if A.is_cuda:
+        return _REAL_EIGH(A)
+    n = A.shape[-1]
+    if n == eigh_op.N:
+        S = A.to(torch.float64).reshape(-1, n, n)
+        S = torch.tril(S) + torch.tril(S, -1).mT
+        VT = torch.eye(n, dtype=torch.float64).expand_as(S).clone()
+        active, sweeps = ~eigh_op._converged(S), 0
+        while bool(active.any()) and sweeps < eigh_op.MAX_SWEEPS:
+            S2, VT2 = eigh_op._sweep(S, VT)
+            S = torch.where(active[:, None, None], S2, S)
+            VT = torch.where(active[:, None, None], VT2, VT)
+            sweeps += 1
+            active &= ~eigh_op._converged(S)
+        L, order = torch.sort(torch.diagonal(S, 0, -2, -1), dim=-1, stable=True)
+        V = torch.gather(VT, 1, order[:, :, None].expand_as(VT)).mT
+    elif 5 <= n <= eigh_op.N_MAX:
+        out = [eigh_op.jacobi_model(a)[:2] for a in A.reshape(-1, n, n)]
+        L, V = torch.stack([x for x, _ in out]), torch.stack([v for _, v in out])
+    else:
+        return torch.linalg.eigh(A)
+    return L.reshape(A.shape[:-1]).to(A.dtype), V.reshape(A.shape).to(A.dtype)
+
+
+_REAL_EIGH = None
+
+
+def emulate_card(response=True):
+    """Patch this process's CPU paths to the card's algorithms: E1 and E2
+    (`jacobi_eigh`) for `ops.eigh.eigh`, every new engine's BA on the card's
+    preintegration bank (the struct-of-arrays `estimation/preint_soa.py`)
+    and, with `response`, K1's response
+    computed in float32 (its launcher casts the image to float32 and the
+    response back) for `ops.stencil.shi_tomasi_response`. The initializer's
+    two-view DLT keeps `torch.linalg.eigh`, as on the card."""
+    global _REAL_EIGH
+    import torch
+
+    from pvio_torch.core import kernels
+    from pvio_torch.frontend import detect
+    from pvio_torch.ops import eigh as eigh_op
+    from pvio_torch.ops import stencil
+
+    _REAL_EIGH = eigh_op.eigh
+    eigh_op.eigh = jacobi_eigh
+    init = kernels.DeviceKernels.__init__
+
+    def init_on_card_bank(self, *a, **k):
+        init(self, *a, **k)
+        self.ba_cfg = self.ba_cfg._replace(fused_preint=True)
+        self.ba_cfg_vo = self.ba_cfg_vo._replace(fused_preint=True)
+
+    kernels.DeviceKernels.__init__ = init_on_card_bank
+    if response:
+        def response_f32(img):
+            H, W = img.shape[-2:]
+            flat = img.reshape(-1, H, W).to(torch.float32)
+            out = torch.stack([detect.shi_tomasi_response(x) for x in flat])
+            return out.reshape(img.shape).to(img.dtype)
+
+        stencil.shi_tomasi_response = response_f32
+
+
+def long_flags(dtype, planes):
+    from tests import test_torch_golden_card as card
+
+    return card.LONG_HORIZON + ["--dtype", dtype] + ([] if planes else ["--no-planes"])
+
+
+def _to_cpu(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_cpu(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def cpu_twin(swt, kern_cpu):
+    """A copy of a card tracker on the CPU engine `kern_cpu`: its window,
+    counters and plane extractor deep-copied with every tensor moved to the
+    CPU; it shares the card's raw-frame book and Config."""
+    import copy
+
+    import torch
+
+    twin = copy.deepcopy(swt, {id(swt.k): kern_cpu, id(swt.ft): swt.ft, id(swt.cfg): swt.cfg})
+    for obj in (twin.hw, twin.planes):
+        if obj is not None:
+            for k, v in vars(obj).items():
+                setattr(obj, k, _to_cpu(v))
+    twin.hw.device = torch.device("cpu")
+    return twin
+
+
+DISCRETE = ("frame_id", "keyframe", "frame_mask", "track_id", "track_mask", "track_flags",
+            "ref_frame", "obs_mask", "plane_id", "plane_mask", "plane_ids")
+
+
+def window_diff(a, b):
+    """The fields of two trackers' windows whose discrete values differ
+    ({name: entries}), and the largest |dp| (m) over the frames both hold
+    and |d inv_depth| over the columns both hold as valid."""
+    import numpy as np
+
+    ha, hb = a.hw, b.hw
+    out = {name: int((np.asarray(getattr(ha, name)) != np.asarray(getattr(hb, name))).sum())
+           for name in DISCRETE}
+    out = {k: v for k, v in out.items() if v}
+    fm = ha.frame_mask & hb.frame_mask
+    both = ha.track_mask & hb.track_mask & (ha.track_flags != 0) & (hb.track_flags != 0)
+    return out, (float(np.abs(ha.p[fm] - hb.p[fm]).max()) if fm.any() else 0.0,
+                 float(np.abs(ha.inv_depth[both] - hb.inv_depth[both]).max()) if both.any()
+                 else 0.0)
+
+
+def twin_run(dtype, planes, from_t, device="cuda", n_frames=None, own_init=False):
+    """The card's endurance run with a CPU twin of its tracker from `from_t`
+    (see the module's docstring), over the first `n_frames` frames (all by
+    default); prints a `twin` line a call and a `twin-summary` line.
+    `device` is the engine the twin copies ("cpu" rehearses the tool: a
+    twin of a CPU engine with the same algorithms must never part). With
+    `own_init`, once the twin has lost tracking it re-initializes on its
+    own, as `FrontendWorker` does: a CPU `Initializer` tries the card's raw
+    frames each call, and the twin's tracker starts from its own window."""
+    from pvio_torch import PVIO, golden_run
+    from pvio_torch.core import swt as swt_mod
+    from pvio_torch.core.initializer import Initializer
+    from pvio_torch.core.kernels import DeviceKernels
+    from pvio_torch.core.plane_extractor import PlaneExtractor
+    from tests import test_torch_golden_card as card
+
+    emulate_card(response=False)
+    args = golden_run.parse_args(long_flags(dtype, planes))
+    cfg, scene = golden_run.build_config(args), golden_run.make_scene(args)
+    args.cache_images = f"{card.LONG_CACHE}_{golden_run.frames_key(args, scene)}.npz"
+    images = golden_run.load_or_render(scene, cfg, args)
+    vio = PVIO(cfg, device=device)
+    kern_cpu = DeviceKernels(cfg, device="cpu")
+    ft = vio.core.feature_tracker
+    raw, finish = [], ft.finish_frame
+
+    def finish_frame(handle, fetched=None):
+        raw.append(finish(handle, fetched))
+        return raw[-1]
+
+    ft.finish_frame = finish_frame
+    st = dict(twin=None, init=None, seeded=False, card_swt=None, reinits=0, mark=0, first=None)
+
+    def lose_twin():
+        st["twin"] = None
+        if own_init:
+            st["init"] = Initializer(cfg, kern_cpu)
+
+    def on_frame(fi):
+        fw = vio.core.frontend
+        t = float(scene.frame_t[fi])
+        card_h = log[st["mark"]:]
+        card_lost = fw.n_reinits > st["reinits"]
+        card_init = fw.swt is not None and fw.swt is not st["card_swt"] and st["seeded"]
+        st["reinits"], st["card_swt"] = fw.n_reinits, fw.swt
+        twin, row = st["twin"], None
+        if twin is not None:
+            mark = len(log)
+            ok = twin.track(raw[-1])
+            row = dict(fi=fi, t=t, card=card_h, twin=log[mark:], card_lost=card_lost,
+                       twin_lost=not ok)
+            if not ok:
+                lose_twin()
+            elif fw.swt is not None:
+                row["fields"], (row["dp"], row["dinv"]) = window_diff(fw.swt, twin)
+            if card_lost and not own_init:
+                st["twin"] = None
+            apart = (row.get("fields") or card_lost != (not ok) or card_init
+                     or row["card"] != row["twin"])
+        elif st["init"] is not None:
+            hw = st["init"].try_initialize(ft.frames)
+            row = dict(fi=fi, t=t, card=card_h, card_init=card_init, twin_init=hw is not None)
+            if hw is not None:
+                st["init"] = None
+                st["twin"] = swt_mod.SlidingWindowTracker(
+                    cfg, kern_cpu, hw, ft, PlaneExtractor(cfg, kern_cpu) if planes else None)
+                if fw.swt is not None:
+                    row["fields"], (row["dp"], row["dinv"]) = window_diff(fw.swt, st["twin"])
+            apart = card_init != (hw is not None) or row.get("fields")
+        elif t >= from_t and fw.swt is not None and not (own_init and st["seeded"]):
+            st["twin"], st["seeded"] = cpu_twin(fw.swt, kern_cpu), True
+            row, apart = dict(fi=fi, t=t, seeded=True, card=card_h), False
+        if row is not None:
+            if st["first"] is None and apart:
+                st["first"] = row
+            print("twin " + json.dumps(row), flush=True)
+        st["mark"] = len(log)
+
+    t0 = time.perf_counter()
+    with card.health_log(swt_mod) as log:
+        golden_run.drive(vio, scene, golden_run.image_source(images, scene, cfg, args),
+                         on_frame=on_frame, n_frames=n_frames)
+    print("twin-summary " + json.dumps(dict(
+        dtype=dtype, planes=planes, from_t=from_t, own_init=own_init,
+        reinits=vio.core.frontend.n_reinits, initialized=vio.initialized,
+        poses=len(vio.get_trajectory()), twin_initialized=st["twin"] is not None,
+        first_apart=st["first"], seconds=time.perf_counter() - t0)), flush=True)
+
+
+def host_fields(hw):
+    """Every field of a host window as plain numpy values, the prior as a
+    dict of its fields (the layout `tests/test_torch_initializer.py::
+    window_fields` gives, without its imports)."""
+    import numpy as np
+
+    out = {}
+    for name, v in vars(hw).items():
+        if name in ("F", "T", "P", "dtype", "device"):
+            continue
+        if name == "prior":
+            v = {f: x.detach().cpu().numpy().copy() for f, x in zip(v._fields, v)}
+        elif isinstance(v, np.ndarray):
+            v = v.copy()
+        elif isinstance(v, list):
+            v = [None if x is None else np.array(x) for x in v]
+        elif isinstance(v, dict):
+            v = dict(v)
+        out[name] = v
+    return out
+
+
+COUNTERS = ("skipped_frames", "n_keyframes", "unhealthy_keyframes", "peak_valid", "_fresh_tri",
+            "latest_state")
+
+
+def tracker_fields(swt):
+    """A tracker's counters and its plane extractor's state (key, next plane
+    id, polar extents as (center, basis, radii), pending detection), as
+    plain values."""
+    import copy
+
+    import numpy as np
+
+    pe = swt.planes
+    return dict(
+        counters={k: copy.deepcopy(getattr(swt, k)) for k in COUNTERS},
+        planes=None if pe is None else dict(
+            key=np.asarray(pe._key).copy(), next_plane_id=pe.next_plane_id,
+            areas={int(k): (a.center.copy(), a.basis.copy(), a.radii.copy())
+                   for k, a in pe.areas.items()},
+            pending=copy.deepcopy(pe._pending)))
+
+
+def record_run(dtype, planes, from_t, out, device="cuda", n_frames=None):
+    """The card's endurance run, recorded from the first call at or after
+    `from_t` s into the pickle `out`: each call's raw frame, what the call
+    did ("seed": the tracker's window, counters and plane extractor after
+    it; "state"; "lost"; "init": the new window; "before": uninitialized),
+    the backstop's records and the newest position. `tests/
+    test_torch_long_horizon_full.py::test_reference_replays_the_card`
+    replays the reference's tracker on it."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from pvio_torch import PVIO, golden_run
+    from pvio_torch.core import swt as swt_mod
+    from tests import test_torch_golden_card as card
+
+    args = golden_run.parse_args(long_flags(dtype, planes))
+    cfg, scene = golden_run.build_config(args), golden_run.make_scene(args)
+    args.cache_images = f"{card.LONG_CACHE}_{golden_run.frames_key(args, scene)}.npz"
+    images = golden_run.load_or_render(scene, cfg, args)
+    vio = PVIO(cfg, device=device)
+    ft = vio.core.feature_tracker
+    raw, finish = [], ft.finish_frame
+
+    def finish_frame(handle, fetched=None):
+        raw.append(finish(handle, fetched))
+        return raw[-1]
+
+    ft.finish_frame = finish_frame
+    calls, st = [], dict(swt=None, reinits=0, mark=0)
+
+    def on_frame(fi):
+        fw = vio.core.frontend
+        t = float(scene.frame_t[fi])
+        card_h = log[st["mark"]:]
+        st["mark"] = len(log)
+        lost = fw.n_reinits > st["reinits"]
+        new = fw.swt is not None and fw.swt is not st["swt"]
+        st["reinits"] = fw.n_reinits
+        if not calls and (t < from_t or fw.swt is None):
+            st["swt"] = fw.swt
+            return
+        r = raw[-1]
+        row = dict(fi=fi, t=t, health=card_h, raw=dict(
+            id=r.id, t=r.t, kp=np.array(r.kp), kp_mask=np.array(r.kp_mask),
+            track_ids=np.array(r.track_ids), imu_ts=np.array(r.imu_ts),
+            imu_w=np.array(r.imu_w), imu_a=np.array(r.imu_a)))
+        if not calls:
+            row.update(kind="seed", window=host_fields(fw.swt.hw), **tracker_fields(fw.swt))
+        elif lost:
+            row["kind"] = "lost"
+        elif new:
+            row.update(kind="init", window=host_fields(fw.swt.hw))
+        else:
+            row["kind"] = "state" if fw.swt is not None else "before"
+        if fw.swt is not None:
+            row["p"] = np.array(fw.swt.latest_state[2])
+        st["swt"] = fw.swt
+        calls.append(row)
+
+    with card.health_log(swt_mod) as log:
+        golden_run.drive(vio, scene, golden_run.image_source(images, scene, cfg, args),
+                         on_frame=on_frame, n_frames=n_frames)
+    meta = dict(dtype=dtype, planes=planes, from_t=from_t, reinits=vio.core.frontend.n_reinits,
+                initialized=vio.initialized, poses=len(vio.get_trajectory()),
+                device=torch.cuda.get_device_name(0) if device == "cuda" else device)
+    with open(out, "wb") as f:
+        pickle.dump(dict(meta=meta, calls=calls), f)
+    print("record " + json.dumps(dict(meta, out=out, calls=len(calls))), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="*", default=[])
@@ -81,6 +445,13 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--response-check", action="store_true")
     ap.add_argument("--frames", type=int, nargs="*", default=[0, 59, 60, 120, 239])
+    ap.add_argument("--long", action="store_true")
+    ap.add_argument("--no-planes", action="store_true")
+    ap.add_argument("--emulate-card", action="store_true")
+    ap.add_argument("--twin-from", type=float, default=None)
+    ap.add_argument("--twin-own-init", action="store_true")
+    ap.add_argument("--record-from", type=float, default=None)
+    ap.add_argument("--record-out", default=".artifacts/card_record.pkl")
     args = ap.parse_args(argv)
     import torch
 
@@ -88,6 +459,23 @@ def main(argv=None):
         print("golden_spread: no CUDA card; pass --cpu to run on the CPU", file=sys.stderr)
         return 2
     device = "cpu" if args.cpu else "cuda"
+    if args.emulate_card:
+        if not args.cpu:
+            print("golden_spread: --emulate-card emulates the card on the CPU: pass --cpu",
+                  file=sys.stderr)
+            return 2
+        emulate_card()
+    if args.long:
+        from tests import test_torch_golden_card as card
+
+        t0 = time.perf_counter()
+        _, _, _, out = card.long_horizon_run(device, args.dtype, not args.no_planes)
+        out.update(emulate_card=args.emulate_card, seconds=time.perf_counter() - t0)
+        print("long " + json.dumps(out), flush=True)
+    if args.record_from is not None:
+        record_run(args.dtype, not args.no_planes, args.record_from, args.record_out, device)
+    if args.twin_from is not None:
+        twin_run(args.dtype, not args.no_planes, args.twin_from, own_init=args.twin_own_init)
     if args.response_check:
         response_check(args.frames, device)
     if args.plain_response:

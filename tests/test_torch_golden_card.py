@@ -26,6 +26,7 @@ one endurance case a process with `-m "cuda and verylong" -k
 "long_horizon and float64 and planes_on"`.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -199,6 +200,7 @@ LONG_HORIZON = ["config/euroc.yaml", "--duration", "60", "--seed", "648", "--ini
 LONG_CACHE = os.path.join(".artifacts", "golden60_port")
 MEMORY_EVERY = 100           # frames between device-memory samples
 MAX_MEMORY_GROWTH = 1.05     # the peak after 30 s over the peak in 10-30 s
+HEALTH_LOG_FROM = 44.0       # s: the backstop's record is kept from the first loss on
 
 
 def long_horizon_record(calls, waits, memory, n_frames):
@@ -227,18 +229,52 @@ def long_horizon_record(calls, waits, memory, n_frames):
     return rec
 
 
-def check_long_horizon_production_gates(device, dtype, planes):
-    """test_golden_long_horizon_production_gates: the 60 s EuRoC-shaped run
-    (drifting loops, an aggressive yaw/pitch burst at 25-35 s) with the
-    init scale gate at its production 1.0, over one render of the frames.
-    Its contract clause by clause: initialized at the end, at most one
-    health re-init, >= 900 finite poses; the first 30 s >= 500 poses, ATE
-    < 0.20 m, scale within 0.05; without a re-init the whole run's ATE <
-    0.60 m and scale within 0.10; with one, the segment from 1 s after the
-    recovery (the last output gap > 0.5 s, before 56 s) >= 40 poses, ATE <
-    0.30 m and scale within 0.10, or the reference's own xfail. On the card
-    the device memory after 30 s stays within MAX_MEMORY_GROWTH of its
-    peak between 10 s and 30 s."""
+@contextlib.contextmanager
+def health_log(swt_module):
+    """Record every decision of the landmark-starvation backstop
+    (`swt_module.health_update`, one call a keyframe; the port's
+    `pvio_torch.core.swt` or the reference's `pvio_tpu.core.swt`) while the
+    block runs. Yields the list of records, one a keyframe: the keyframe's
+    time `t`, the count `n_valid` of live tracks flagged TF_VALID or
+    TF_PLANE, its parts `n_tf_valid` and `n_tf_plane` (a track may carry
+    both flags), the running peak `peak`, the floor max(
+    track_health_min_landmarks, 15% of the peak), the consecutive
+    below-floor keyframes after the call `unhealthy`, and the verdict
+    `lost`."""
+    real = swt_module.health_update
+    log = []
+
+    def logged(state, cfg, n_valid_now):
+        lost = real(state, cfg, n_valid_now)
+        hw = state.hw
+        live = np.asarray(hw.track_mask, bool)
+        flags = np.asarray(hw.track_flags)
+        log.append(dict(
+            t=float(hw.frame_t[hw.n_frames - 1]), n_valid=int(n_valid_now),
+            n_tf_valid=int((live & ((flags & swt_module.TF_VALID) != 0)).sum()),
+            n_tf_plane=int((live & ((flags & swt_module.TF_PLANE) != 0)).sum()),
+            peak=int(state.peak_valid),
+            floor=max(int(cfg.track_health_min_landmarks), int(0.15 * state.peak_valid)),
+            unhealthy=int(state.unhealthy_keyframes), lost=bool(lost)))
+        return lost
+
+    swt_module.health_update = logged
+    try:
+        yield log
+    finally:
+        swt_module.health_update = real
+
+
+def long_horizon_run(device, dtype, planes, health_from=HEALTH_LOG_FROM):
+    """The 60 s endurance run of test_golden_long_horizon_production_gates
+    on `device` over one render of its frames (`LONG_CACHE`), and what its
+    contract reads: returns the engine, the trajectory, the output gaps
+    over 0.5 s, and the record the test prints (the contract's numbers,
+    device memory every MEMORY_EVERY frames after initialization, ms and
+    host waits per call by quarter, the kernels' launches, and the
+    backstop's decision at every keyframe from `health_from` s on,
+    `health_log`'s records)."""
+    from pvio_torch.core import swt as swt_mod
     from pvio_torch.geometry import wahba
     from pvio_torch.ops import eigh as eigh_op
     from pvio_torch.ops import poisson, stencil
@@ -257,9 +293,10 @@ def check_long_horizon_production_gates(device, dtype, planes):
 
     stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
     eigh_op.BLOCK_LAUNCHES.clear()
-    vio, scene, rec, r = golden(
-        LONG_HORIZON + ["--dtype", dtype] + ([] if planes else ["--no-planes"]), device,
-        on_frame=on_frame, cache_prefix=LONG_CACHE)
+    with health_log(swt_mod) as health:
+        vio, scene, rec, r = golden(
+            LONG_HORIZON + ["--dtype", dtype] + ([] if planes else ["--no-planes"]), device,
+            on_frame=on_frame, cache_prefix=LONG_CACHE)
     launches = dict(shi_tomasi=stencil.LAUNCHES, poisson_select=poisson.LAUNCHES,
                     sym_eig=eigh_op.LAUNCHES,
                     sym_eig_block={int(n): c for n, c in sorted(eigh_op.BLOCK_LAUNCHES.items())})
@@ -288,8 +325,27 @@ def check_long_horizon_production_gates(device, dtype, planes):
                reinits=reinits, poses=len(traj), init_fi=rec["init_fi"],
                n_planes=len(vio.get_planes()), first30=first30, whole=whole, t_rec=t_rec,
                post=post, quarters=r["quarters"], kf_steps=rec["kf_steps"], launches=launches,
-               **long_horizon_record(rec["calls"], waits, memory, rec["n_frames"]))
+               **long_horizon_record(rec["calls"], waits, memory, rec["n_frames"]),
+               health=[h for h in health if h["t"] >= health_from])
+    return vio, traj, gaps, out
+
+
+def check_long_horizon_production_gates(device, dtype, planes):
+    """test_golden_long_horizon_production_gates: the 60 s EuRoC-shaped run
+    (drifting loops, an aggressive yaw/pitch burst at 25-35 s) with the
+    init scale gate at its production 1.0, over one render of the frames.
+    Its contract clause by clause: initialized at the end, at most one
+    health re-init, >= 900 finite poses; the first 30 s >= 500 poses, ATE
+    < 0.20 m, scale within 0.05; without a re-init the whole run's ATE <
+    0.60 m and scale within 0.10; with one, the segment from 1 s after the
+    recovery (the last output gap > 0.5 s, before 56 s) >= 40 poses, ATE <
+    0.30 m and scale within 0.10, or the reference's own xfail. On the card
+    the device memory after 30 s stays within MAX_MEMORY_GROWTH of its
+    peak between 10 s and 30 s."""
+    vio, traj, gaps, out = long_horizon_run(device, dtype, planes)
     print("\nlong horizon " + json.dumps(out))
+    reinits, first30, whole, t_rec, post = (out[k] for k in ("reinits", "first30", "whole",
+                                                             "t_rec", "post"))
 
     assert vio.initialized, f"planes={planes}: must end initialized"
     assert reinits <= 1, f"planes={planes}: at most one health re-init, got {reinits}"

@@ -39,20 +39,31 @@ device-resident state its step chains on; masks and ids are its own and
 are held identical), and each step is held to 1e-9 px.
 """
 
+import copy
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 
-from tests.test_torch_facade_tracking import MAX_DP_M, MAX_KP_PX, run_port
+from golden_spread import tracker_fields
+
+from tests.test_torch_facade import drive
+from tests.test_torch_facade_tracking import MAX_DP_M, MAX_KP_PX
+from tests.test_torch_golden_card import health_log
 from tests.test_torch_harness import small_config
+from tests.test_torch_initializer import window_fields
 from tests.test_torch_oracle_planes import MAX_PLANE_TOL, plane_state
-from tests.test_torch_planes import extent_from_valid_members
+from tests.test_torch_planes import copy_state, extent_from_valid_members
 from tests.test_torch_oracle_pipeline import ref_window
 
 from pvio_tpu.core.feature_tracker import FeatureTracker as RefFeatureTracker
 from pvio_tpu.core.kernels import DeviceKernels as RefKernels
 from pvio_tpu.core.plane_extractor import PlaneExtractor as RefExtractor
+from pvio_tpu.core import swt as ref_swt
 from pvio_tpu.core.swt import SlidingWindowTracker as RefSWT
 from pvio_tpu.io.config import Config as RefConfig
+from pvio_torch import PVIO
+from pvio_torch.core import swt as port_swt
 from pvio_torch.io import synthetic
 
 NOISE_AFTER = 1.45     # s: frame 29, the first after the initializing frame
@@ -93,79 +104,211 @@ def step_state(swt):
     return st
 
 
-def lockstep(scene, images, cfg, cfg_ref, free_frontend=False):
+def ref_tracker(cfg_ref, kern, book, window, state=None):
+    """A reference tracker on the raw-frame book `book`, holding a port
+    window's fields and, given `state` (`golden_spread.tracker_fields` of a
+    port tracker), that tracker's counters and plane extractor. Its
+    extractor builds extents from valid members (`extent_from_valid_members`)."""
+    planes = cfg_ref.enable_plane_constraint
+    pe = extent_from_valid_members(RefExtractor(cfg_ref, kern)) if planes else None
+    swt = RefSWT(cfg_ref, kern, ref_window(window), book, pe)
+    if state is not None:
+        for k, v in copy.deepcopy(state["counters"]).items():
+            setattr(swt, k, v)
+        if planes:
+            st = state["planes"]
+            copy_state(SimpleNamespace(
+                _key=st["key"], next_plane_id=st["next_plane_id"], _pending=st["pending"],
+                areas={s: SimpleNamespace(center=c, basis=b, radii=r)
+                       for s, (c, b, r) in st["areas"].items()}), pe)
+    return swt
+
+
+def run_port_events(scene, images, cfg, full=False):
+    """The port's facade at `cfg` over the scene's IMU and `images`:
+    returns the engine, every raw frame, the calls' events {frame index:
+    (kind, value)}, the backstop's records of each call {frame index:
+    [`health_log` record, ...]} and, with `full`, the tracker's whole state
+    after each call that leaves one ({frame index: its window's fields and
+    `golden_spread.tracker_fields`}). The
+    kinds: "init" at each initializing call (the window's fields), "lost"
+    where tracking was declared lost, "state" after every other call while
+    tracking (`step_state`)."""
+    vio = PVIO(cfg, device="cpu")
+    ft = vio.core.feature_tracker
+    raw, events, health, states = [], {}, {}, {}
+    finish = ft.finish_frame
+
+    def finish_frame(handle, fetched=None):
+        rf = finish(handle, fetched)
+        raw.append(rf)
+        return rf
+
+    ft.finish_frame = finish_frame
+    seen = dict(swt=None, lost=0, mark=0)
+
+    def after_call(fi):
+        fw = vio.core.frontend
+        if fw.n_reinits > seen["lost"]:
+            events[fi] = ("lost", None)
+            seen["lost"] = fw.n_reinits
+        elif fw.swt is not None and fw.swt is not seen["swt"]:
+            events[fi] = ("init", window_fields(fw.swt.hw))
+            seen["swt"] = fw.swt
+        elif fw.swt is not None:
+            events[fi] = ("state", step_state(fw.swt))
+        if full and fw.swt is not None:
+            states[fi] = dict(window=window_fields(fw.swt.hw), **tracker_fields(fw.swt))
+        health[fi] = log[seen["mark"]:]
+        seen["mark"] = len(log)
+
+    with health_log(port_swt) as log:
+        drive(vio, scene, images, after_call=after_call)
+    return vio, raw, events, health, states
+
+
+def parted(fi, kind, ok, a, b, port_health, ref_health):
+    """Why the reference's call at frame `fi` parts from the port's (None if
+    it does not): the backstops' records, the verdict, the keyframes, the
+    plane decisions and extents, and the state within MAX_DP_M. `a` and `b`
+    are the port's and the reference's `step_state`."""
+    if ref_health != port_health:
+        return f"frame {fi}: backstop {port_health} (port) vs {ref_health}"
+    if kind == "lost":
+        return None if not ok else f"frame {fi}: the port lost tracking, the reference did not"
+    if not ok:
+        return f"the reference lost tracking at frame {fi}"
+    if a["t"] != b["t"] or a["n_keyframes"] != b["n_keyframes"]:
+        return f"frame {fi}: keyframes {a['n_keyframes']} (port) vs {b['n_keyframes']}"
+    for name in PLANE_DECISIONS:
+        if not np.array_equal(a[name], b[name]):
+            cols = np.nonzero(np.asarray(a[name]) != np.asarray(b[name]))[0]
+            return (f"frame {fi}: {name} differs at {cols.tolist()}: "
+                    f"{np.asarray(a[name])[cols].tolist()} (port) vs {np.asarray(b[name])[cols].tolist()}")
+    if sorted(a["areas"]) != sorted(b["areas"]):
+        return f"frame {fi}: extents {sorted(a['areas'])} (port) vs {sorted(b['areas'])}"
+    dn = plane_gap(a, b)
+    if dn > MAX_PLANE_TOL:
+        return f"frame {fi}: plane values {dn:.3e} apart"
+    dx = max(float(np.abs(x - np.asarray(y)).max()) for x, y in zip(a["state"][1:], b["state"][1:]))
+    if dx > MAX_DP_M:
+        return f"frame {fi}: state {dx:.3e} apart"
+    return None
+
+
+def plane_gap(a, b):
+    """The largest of |dn|, |dd| and the extents' difference of two
+    `step_state`s."""
+    return max([float(np.abs(a[k] - b[k]).max()) for k in ("normal", "distance") if len(b[k])]
+               + [float(np.abs(a["areas"][k] - b["areas"][k]).max()) for k in b["areas"]],
+               default=0.0)
+
+
+def lockstep(scene, images, cfg, cfg_ref, free_frontend=False, max_reinits=0, reseed=False,
+             progress=None):
     """The port's facade at `cfg` over the scene's IMU and `images`, and the
     reference's trackers at `cfg_ref` held to it step by step (see the
     module's docstring); the first call that parts fails, naming its frame.
-    Returns the port's engine, the initializing frame, the keyframes, the
-    largest |dp| (m) and the largest of |dn|, |dd| and the extents'
-    difference after each call, the largest keypoint
-    gap (px) of each frame, and both trackers' states after each call from
-    the initializing one on as trajectories [(t, q, p)]. With
-    `free_frontend` a second reference `FeatureTracker` tracks the same
-    frames left free, and the record adds its largest keypoint gap to the
-    port's raw frames on each frame before their masks or ids first differ,
-    and that frame (`free_parts`, None if they never do)."""
+    Each keyframe the two backstops (`health_update`) must see the same
+    valid landmarks, peak, floor and below-floor run and give the same
+    verdict. Up to `max_reinits` times the port may declare tracking lost:
+    the reference must do so at the same call, and at the port's next
+    initializing call its tracker starts again from the port's window.
+    With `reseed`, a call that parts is run again by a reference tracker
+    started from the port's whole state after the call before (window,
+    counters, plane extractor): if it then agrees, the parting came from
+    the rounding carried into the call (a decision at a tie), the record
+    keeps it in `reseeds` [(frame, why)] and the reference goes on from
+    there; if not, the call itself parts and the test fails.
+    Returns the port's engine, the initializing frames (`inits`, the first
+    as `init_fi`) and the frames where tracking was lost (`lost`), the
+    keyframes, the largest |dp| (m) and the largest of |dn|, |dd| and the
+    extents' difference after each tracked call, the largest keypoint gap
+    (px) of each frame, the backstop's records [(frame, record)], and both
+    trackers' states after each call from an initializing one on as
+    trajectories [(t, q, p)]. With `free_frontend` a second reference
+    `FeatureTracker` tracks the same frames left free, and the record adds
+    its largest keypoint gap to the port's raw frames on each frame before
+    their masks or ids first differ, and that frame (`free_parts`, None if
+    they never do). `progress(fi, t, dp)`, if given, is called after each
+    tracked call."""
     planes = cfg.enable_plane_constraint
-    vio, raw, init, states = run_port(scene, images, cfg, record=step_state)
-    assert vio.initialized and vio.core.frontend.n_reinits == 0
-    assert len(raw) == len(images) and len(states) == len(images) - 1 - init["fi"]
+    vio, raw, events, port_health, port_full = run_port_events(scene, images, cfg, full=reseed)
+    inits = sorted(fi for fi, (kind, _) in events.items() if kind == "init")
+    lost = sorted(fi for fi, (kind, _) in events.items() if kind == "lost")
+    assert vio.initialized and inits
+    assert len(lost) == vio.core.frontend.n_reinits <= max_reinits, lost
+    assert len(raw) == len(images)
 
     kern = RefKernels(cfg_ref)
     ft = RefFeatureTracker(cfg_ref, kern)
     free = RefFeatureTracker(cfg_ref, kern) if free_frontend else None
     free_gap, free_parts = [], None
-    swt, dp, dn, dkp = None, [], [], []
+
+    swt, dp, dn, dkp, health, reseeds = None, [], [], [], [], []
     port_traj, ref_traj = [], []
-    for fi, rf in enumerate(raw):
-        if free is not None:
-            f = free.track_frame(rf.id, rf.t, images[fi], rf.imu_ts, rf.imu_w, rf.imu_a)
-            free.initialized = fi >= init["fi"]
-            if np.array_equal(f.kp_mask, rf.kp_mask) and np.array_equal(f.track_ids, rf.track_ids):
-                gap = np.abs(f.kp[f.kp_mask] - rf.kp[rf.kp_mask])
-                free_gap.append(float(gap.max()) if gap.size else 0.0)
+    with health_log(ref_swt) as ref_health:
+        for fi, rf in enumerate(raw):
+            kind, val = events.get(fi, (None, None))
+            if free is not None:
+                f = free.track_frame(rf.id, rf.t, images[fi], rf.imu_ts, rf.imu_w, rf.imu_a)
+                free.initialized = kind == "init" or (kind != "lost" and free.initialized)
+                if (np.array_equal(f.kp_mask, rf.kp_mask)
+                        and np.array_equal(f.track_ids, rf.track_ids)):
+                    gap = np.abs(f.kp[f.kp_mask] - rf.kp[rf.kp_mask])
+                    free_gap.append(float(gap.max()) if gap.size else 0.0)
+                else:
+                    free, free_parts = None, fi
+            if fi > 0:
+                ft._kp_dev = jnp.asarray(raw[fi - 1].kp)
+            r = ft.track_frame(rf.id, rf.t, images[fi], rf.imu_ts, rf.imu_w, rf.imu_a)
+            assert r.t == rf.t
+            np.testing.assert_array_equal(r.kp_mask, rf.kp_mask, err_msg=f"frame {fi}")
+            np.testing.assert_array_equal(r.track_ids, rf.track_ids, err_msg=f"frame {fi}")
+            gap = np.abs(r.kp[r.kp_mask] - rf.kp[rf.kp_mask])
+            dkp.append(float(gap.max()) if gap.size else 0.0)
+            np.testing.assert_allclose(r.kp[r.kp_mask], rf.kp[rf.kp_mask], rtol=0,
+                                       atol=MAX_KP_PX, err_msg=f"frame {fi}")
+            if kind == "init":
+                assert swt is None, f"frame {fi}: the port initialized while tracking"
+                swt = ref_tracker(cfg_ref, kern, ft, val)
+                ft.initialized = True
+                t, q, p = swt.latest_state[:3]
+                port_traj.append((t, np.array(q), np.array(p)))
+                ref_traj.append((t, np.array(q), np.array(p)))
+                continue
+            if swt is None:
+                continue
+
+            def call(swt):
+                mark = len(ref_health)
+                ok = swt.track(r)
+                b = step_state(swt) if ok and kind != "lost" else None
+                return ok, b, parted(fi, kind, ok, val, b, port_health[fi], ref_health[mark:])
+
+            ok, b, why = call(swt)
+            if why is not None and reseed and fi - 1 in port_full:
+                swt = ref_tracker(cfg_ref, kern, ft, port_full[fi - 1]["window"], port_full[fi - 1])
+                ok, b, again = call(swt)
+                assert again is None, f"{why}; from the port's state before the call: {again}"
+                reseeds.append((fi, why))
             else:
-                free, free_parts = None, fi
-        if fi > 0:
-            ft._kp_dev = jnp.asarray(raw[fi - 1].kp)
-        r = ft.track_frame(rf.id, rf.t, images[fi], rf.imu_ts, rf.imu_w, rf.imu_a)
-        assert r.t == rf.t
-        np.testing.assert_array_equal(r.kp_mask, rf.kp_mask, err_msg=f"frame {fi}")
-        np.testing.assert_array_equal(r.track_ids, rf.track_ids, err_msg=f"frame {fi}")
-        gap = np.abs(r.kp[r.kp_mask] - rf.kp[rf.kp_mask])
-        dkp.append(float(gap.max()) if gap.size else 0.0)
-        np.testing.assert_allclose(r.kp[r.kp_mask], rf.kp[rf.kp_mask], rtol=0, atol=MAX_KP_PX,
-                                   err_msg=f"frame {fi}")
-        if fi == init["fi"]:
-            swt = RefSWT(cfg_ref, kern, ref_window(init["window"]), ft,
-                         extent_from_valid_members(RefExtractor(cfg_ref, kern)) if planes
-                         else None)
-            ft.initialized = True
-            t, q, p = swt.latest_state[:3]
-            port_traj.append((t, np.array(q), np.array(p)))
-            ref_traj.append((t, np.array(q), np.array(p)))
-        elif swt is not None:
-            assert swt.track(r), f"the reference lost tracking at frame {fi}"
-            a, b = states[fi - 1 - init["fi"]], step_state(swt)
-            assert a["t"] == b["t"] and a["n_keyframes"] == b["n_keyframes"], (
-                f"frame {fi}: keyframes {a['n_keyframes']} (port) vs {b['n_keyframes']}")
-            for name in PLANE_DECISIONS:
-                np.testing.assert_array_equal(a[name], b[name], err_msg=f"frame {fi}: {name}")
+                assert why is None, why
+            health += [(fi, h) for h in port_health[fi]]
+            if kind == "lost":
+                swt, ft.initialized = None, False
+                continue
+            a = val
             dp.append(float(np.abs(a["p"] - np.asarray(b["p"])).max()))
-            assert sorted(a["areas"]) == sorted(b["areas"]), f"frame {fi}: extents"
-            dn.append(max([float(np.abs(a[k] - b[k]).max()) for k in ("normal", "distance")
-                           if len(b[k])]
-                          + [float(np.abs(a["areas"][k] - b["areas"][k]).max()) for k in b["areas"]],
-                          default=0.0))
-            for x, y in zip(a["state"][1:], b["state"][1:]):
-                np.testing.assert_allclose(x, np.asarray(y), rtol=0, atol=MAX_DP_M,
-                                           err_msg=f"frame {fi}")
-            assert dn[-1] <= MAX_PLANE_TOL, (fi, dn[-1])
+            dn.append(plane_gap(a, b))
+            if progress is not None:
+                progress(fi, a["t"], dp[-1])
             port_traj.append((a["t"], a["state"][1], a["state"][2]))
             ref_traj.append((b["t"], np.array(b["state"][1]), np.array(b["state"][2])))
     assert swt.n_keyframes == vio.core.frontend.swt.n_keyframes
-    return dict(vio=vio, init_fi=init["fi"], n_keyframes=swt.n_keyframes, dp=dp, dn=dn, dkp=dkp,
-                port_traj=port_traj, ref_traj=ref_traj, free_gap=free_gap, free_parts=free_parts)
+    return dict(vio=vio, init_fi=inits[0], inits=inits, lost=lost, n_keyframes=swt.n_keyframes,
+                dp=dp, dn=dn, dkp=dkp, health=health, reseeds=reseeds, port_traj=port_traj,
+                ref_traj=ref_traj, free_gap=free_gap, free_parts=free_parts)
 
 
 def test_hard_mode_tracking_matches_reference_on_noisy_images():

@@ -52,14 +52,14 @@ CACHE_PREFIX = os.path.join(".artifacts", "golden_hard")
 FREE_PARTS_AFTER_PX = 1e-6
 
 
-def hard_mode_frames(flags):
+def hard_mode_frames(flags, cache_prefix=CACHE_PREFIX):
     """The golden run's args, Config, scene and frames for `flags`, the
     frames read from (or rendered into) the cache under their key."""
     args = golden_run.parse_args(list(flags) + ["--cpu"])
     cfg = golden_run.build_config(args)
     scene = golden_run.make_scene(args)
-    os.makedirs(os.path.dirname(CACHE_PREFIX), exist_ok=True)
-    args.cache_images = f"{CACHE_PREFIX}_{golden_run.frames_key(args, scene)}.npz"
+    os.makedirs(os.path.dirname(cache_prefix), exist_ok=True)
+    args.cache_images = f"{cache_prefix}_{golden_run.frames_key(args, scene)}.npz"
     return args, cfg, scene, golden_run.load_or_render(scene, cfg, args)
 
 
