@@ -27,7 +27,7 @@ Without a card it stops unless given `--cpu`.
 `--long` runs the 60 s endurance case of the card test
 (`long_horizon_run`, `LONG_HORIZON`, its frame cache) and prints its
 record as one JSON line (`long {...}`), with the landmark-starvation
-backstop's decision at every keyframe from 44 s on. With `--cpu
+backstop's decision at every keyframe of the run. With `--cpu
 --emulate-card` the CPU engine takes the card's algorithms where its plain
 versions differ (`emulate_card`): K1's response computed in float32, E1's
 and E2's Jacobi (`ops/eigh.py::jacobi_model`) for `torch.linalg.eigh`, and
@@ -39,10 +39,7 @@ the largest |dp| between the two windows and the fields of the windows
 whose discrete values differ (`twin {...}` lines, and a `twin-summary`
 line naming the first call at which a discrete field differs). When the
 card declares tracking lost the twin must too; at the card's next
-initializing call the twin starts again from the card's window; with
-`--twin-own-init` it re-initializes on its own instead (a CPU initializer
-on the card's raw frames), and the lines say at which call each of the two
-initialized.
+initializing call the twin starts again from the card's window.
 `--record-from T [--record-out PATH]` records the card's run from T s (its
 raw frames, its tracker's state at T and at each re-initialization, the
 backstop's records) for `tests/test_torch_long_horizon_full.py::
@@ -51,6 +48,7 @@ on the card's own inputs on the CPU.
 """
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -232,99 +230,120 @@ def window_diff(a, b):
                  else 0.0)
 
 
-def twin_run(dtype, planes, from_t, device="cuda", n_frames=None, own_init=False):
-    """The card's endurance run with a CPU twin of its tracker from `from_t`
-    (see the module's docstring), over the first `n_frames` frames (all by
-    default); prints a `twin` line a call and a `twin-summary` line.
-    `device` is the engine the twin copies ("cpu" rehearses the tool: a
-    twin of a CPU engine with the same algorithms must never part). With
-    `own_init`, once the twin has lost tracking it re-initializes on its
-    own, as `FrontendWorker` does: a CPU `Initializer` tries the card's raw
-    frames each call, and the twin's tracker starts from its own window."""
+def long_engine(dtype, planes, device):
+    """The endurance case's engine on `device`, its scene and a function
+    that drives it over the first `n_frames` frames of the card tests'
+    render (`LONG_CACHE`), calling `on_frame(fi)` after each."""
     from pvio_torch import PVIO, golden_run
-    from pvio_torch.core import swt as swt_mod
-    from pvio_torch.core.initializer import Initializer
-    from pvio_torch.core.kernels import DeviceKernels
-    from pvio_torch.core.plane_extractor import PlaneExtractor
     from tests import test_torch_golden_card as card
 
-    emulate_card(response=False)
     args = golden_run.parse_args(long_flags(dtype, planes))
     cfg, scene = golden_run.build_config(args), golden_run.make_scene(args)
     args.cache_images = f"{card.LONG_CACHE}_{golden_run.frames_key(args, scene)}.npz"
     images = golden_run.load_or_render(scene, cfg, args)
     vio = PVIO(cfg, device=device)
-    kern_cpu = DeviceKernels(cfg, device="cpu")
-    ft = vio.core.feature_tracker
-    raw, finish = [], ft.finish_frame
 
-    def finish_frame(handle, fetched=None):
-        raw.append(finish(handle, fetched))
-        return raw[-1]
-
-    ft.finish_frame = finish_frame
-    st = dict(twin=None, init=None, seeded=False, card_swt=None, reinits=0, mark=0, first=None)
-
-    def lose_twin():
-        st["twin"] = None
-        if own_init:
-            st["init"] = Initializer(cfg, kern_cpu)
-
-    def on_frame(fi):
-        fw = vio.core.frontend
-        t = float(scene.frame_t[fi])
-        card_h = log[st["mark"]:]
-        card_lost = fw.n_reinits > st["reinits"]
-        card_init = fw.swt is not None and fw.swt is not st["card_swt"] and st["seeded"]
-        st["reinits"], st["card_swt"] = fw.n_reinits, fw.swt
-        twin, row = st["twin"], None
-        if twin is not None:
-            mark = len(log)
-            ok = twin.track(raw[-1])
-            row = dict(fi=fi, t=t, card=card_h, twin=log[mark:], card_lost=card_lost,
-                       twin_lost=not ok)
-            if not ok:
-                lose_twin()
-            elif fw.swt is not None:
-                row["fields"], (row["dp"], row["dinv"]) = window_diff(fw.swt, twin)
-            if card_lost and not own_init:
-                st["twin"] = None
-            apart = (row.get("fields") or card_lost != (not ok) or card_init
-                     or row["card"] != row["twin"])
-        elif st["init"] is not None:
-            hw = st["init"].try_initialize(ft.frames)
-            row = dict(fi=fi, t=t, card=card_h, card_init=card_init, twin_init=hw is not None)
-            if hw is not None:
-                st["init"] = None
-                st["twin"] = swt_mod.SlidingWindowTracker(
-                    cfg, kern_cpu, hw, ft, PlaneExtractor(cfg, kern_cpu) if planes else None)
-                if fw.swt is not None:
-                    row["fields"], (row["dp"], row["dinv"]) = window_diff(fw.swt, st["twin"])
-            apart = card_init != (hw is not None) or row.get("fields")
-        elif t >= from_t and fw.swt is not None and not (own_init and st["seeded"]):
-            st["twin"], st["seeded"] = cpu_twin(fw.swt, kern_cpu), True
-            row, apart = dict(fi=fi, t=t, seeded=True, card=card_h), False
-        if row is not None:
-            if st["first"] is None and apart:
-                st["first"] = row
-            print("twin " + json.dumps(row), flush=True)
-        st["mark"] = len(log)
-
-    t0 = time.perf_counter()
-    with card.health_log(swt_mod) as log:
+    def run(on_frame, n_frames=None):
         golden_run.drive(vio, scene, golden_run.image_source(images, scene, cfg, args),
                          on_frame=on_frame, n_frames=n_frames)
+
+    return vio, scene, run
+
+
+@contextlib.contextmanager
+def followed(vio):
+    """Follow the port's engine `vio` while the block drives it. Yields a
+    record whose `raw` keeps every raw frame its feature tracker finishes,
+    whose `log` keeps every decision of the landmark-starvation backstop
+    (`health_log` of `pvio_torch.core.swt`: any port tracker's, so a caller
+    that runs another one deletes its records), and whose `after_call()`,
+    called after each of the engine's calls, returns what the call did:
+    its kind ("init": a new window; "lost": tracking declared lost;
+    "state": tracking; None: not initialized) and the backstop's records
+    of the call."""
+    from types import SimpleNamespace
+
+    from pvio_torch.core import swt as swt_mod
+    from tests.test_torch_golden_card import health_log
+
+    ft, fw = vio.core.feature_tracker, vio.core.frontend
+    run, finish = SimpleNamespace(raw=[]), ft.finish_frame
+    seen = dict(swt=None, lost=0, mark=0)
+
+    def finish_frame(handle, fetched=None):
+        run.raw.append(finish(handle, fetched))
+        return run.raw[-1]
+
+    def after_call():
+        if fw.n_reinits > seen["lost"]:
+            kind = "lost"
+        elif fw.swt is not None:
+            kind = "init" if fw.swt is not seen["swt"] else "state"
+        else:
+            kind = None
+        seen.update(swt=fw.swt, lost=fw.n_reinits)
+        health, seen["mark"] = run.log[seen["mark"]:], len(run.log)
+        return kind, health
+
+    run.after_call = after_call
+    ft.finish_frame = finish_frame
+    try:
+        with health_log(swt_mod) as run.log:
+            yield run
+    finally:
+        del ft.finish_frame
+
+
+def twin_run(dtype, planes, from_t, device="cuda", n_frames=None):
+    """The card's endurance run with a CPU twin of its tracker from `from_t`
+    (see the module's docstring), over the first `n_frames` frames (all by
+    default); prints a `twin` line a call and a `twin-summary` line.
+    `device` is the engine the twin copies ("cpu" rehearses the tool: a
+    twin of a CPU engine with the same algorithms must never part)."""
+    from pvio_torch.core.kernels import DeviceKernels
+
+    emulate_card(response=False)
+    vio, scene, run = long_engine(dtype, planes, device)
+    kern_cpu = DeviceKernels(vio.config, device="cpu")
+    st = dict(twin=None, first=None)
+
+    def on_frame(fi):
+        kind, card_h = card.after_call()
+        swt, twin, t = vio.core.frontend.swt, st["twin"], float(scene.frame_t[fi])
+        if twin is not None:
+            mark = len(card.log)
+            ok = twin.track(card.raw[-1])
+            twin_h = card.log[mark:]
+            del card.log[mark:]
+            row = dict(fi=fi, t=t, card=card_h, twin=twin_h, card_lost=kind == "lost",
+                       twin_lost=not ok)
+            if ok and swt is not None:
+                row["fields"], (row["dp"], row["dinv"]) = window_diff(swt, twin)
+            if not ok or kind == "lost":
+                st["twin"] = None
+            apart = row.get("fields") or (kind == "lost") != (not ok) or card_h != twin_h
+        elif t >= from_t and swt is not None:
+            st["twin"] = cpu_twin(swt, kern_cpu)
+            row, apart = dict(fi=fi, t=t, seeded=True, card=card_h), False
+        else:
+            return
+        if st["first"] is None and apart:
+            st["first"] = row
+        print("twin " + json.dumps(row), flush=True)
+
+    t0 = time.perf_counter()
+    with followed(vio) as card:
+        run(on_frame, n_frames)
     print("twin-summary " + json.dumps(dict(
-        dtype=dtype, planes=planes, from_t=from_t, own_init=own_init,
-        reinits=vio.core.frontend.n_reinits, initialized=vio.initialized,
-        poses=len(vio.get_trajectory()), twin_initialized=st["twin"] is not None,
-        first_apart=st["first"], seconds=time.perf_counter() - t0)), flush=True)
+        dtype=dtype, planes=planes, from_t=from_t, reinits=vio.core.frontend.n_reinits,
+        initialized=vio.initialized, poses=len(vio.get_trajectory()),
+        twin_initialized=st["twin"] is not None, first_apart=st["first"],
+        seconds=time.perf_counter() - t0)), flush=True)
 
 
-def host_fields(hw):
-    """Every field of a host window as plain numpy values, the prior as a
-    dict of its fields (the layout `tests/test_torch_initializer.py::
-    window_fields` gives, without its imports)."""
+def window_fields(hw):
+    """Every field of a (reference or port) HostWindow as numpy values, the
+    prior as a dict of its fields (the input of `HostWindow.from_arrays`)."""
     import numpy as np
 
     out = {}
@@ -332,7 +351,8 @@ def host_fields(hw):
         if name in ("F", "T", "P", "dtype", "device"):
             continue
         if name == "prior":
-            v = {f: x.detach().cpu().numpy().copy() for f, x in zip(v._fields, v)}
+            v = {f: np.array(x.cpu().numpy() if hasattr(x, "cpu") else x)
+                 for f, x in zip(v._fields, v)}
         elif isinstance(v, np.ndarray):
             v = v.copy()
         elif isinstance(v, list):
@@ -378,57 +398,31 @@ def record_run(dtype, planes, from_t, out, device="cuda", n_frames=None):
     import numpy as np
     import torch
 
-    from pvio_torch import PVIO, golden_run
-    from pvio_torch.core import swt as swt_mod
-    from tests import test_torch_golden_card as card
-
-    args = golden_run.parse_args(long_flags(dtype, planes))
-    cfg, scene = golden_run.build_config(args), golden_run.make_scene(args)
-    args.cache_images = f"{card.LONG_CACHE}_{golden_run.frames_key(args, scene)}.npz"
-    images = golden_run.load_or_render(scene, cfg, args)
-    vio = PVIO(cfg, device=device)
-    ft = vio.core.feature_tracker
-    raw, finish = [], ft.finish_frame
-
-    def finish_frame(handle, fetched=None):
-        raw.append(finish(handle, fetched))
-        return raw[-1]
-
-    ft.finish_frame = finish_frame
-    calls, st = [], dict(swt=None, reinits=0, mark=0)
+    vio, scene, run = long_engine(dtype, planes, device)
+    calls = []
 
     def on_frame(fi):
-        fw = vio.core.frontend
-        t = float(scene.frame_t[fi])
-        card_h = log[st["mark"]:]
-        st["mark"] = len(log)
-        lost = fw.n_reinits > st["reinits"]
-        new = fw.swt is not None and fw.swt is not st["swt"]
-        st["reinits"] = fw.n_reinits
-        if not calls and (t < from_t or fw.swt is None):
-            st["swt"] = fw.swt
+        kind, health = card.after_call()
+        swt, t = vio.core.frontend.swt, float(scene.frame_t[fi])
+        if not calls and (t < from_t or swt is None):
             return
-        r = raw[-1]
-        row = dict(fi=fi, t=t, health=card_h, raw=dict(
+        r = card.raw[-1]
+        row = dict(fi=fi, t=t, health=health, raw=dict(
             id=r.id, t=r.t, kp=np.array(r.kp), kp_mask=np.array(r.kp_mask),
             track_ids=np.array(r.track_ids), imu_ts=np.array(r.imu_ts),
             imu_w=np.array(r.imu_w), imu_a=np.array(r.imu_a)))
         if not calls:
-            row.update(kind="seed", window=host_fields(fw.swt.hw), **tracker_fields(fw.swt))
-        elif lost:
-            row["kind"] = "lost"
-        elif new:
-            row.update(kind="init", window=host_fields(fw.swt.hw))
+            row.update(kind="seed", window=window_fields(swt.hw), **tracker_fields(swt))
+        elif kind == "init":
+            row.update(kind="init", window=window_fields(swt.hw))
         else:
-            row["kind"] = "state" if fw.swt is not None else "before"
-        if fw.swt is not None:
-            row["p"] = np.array(fw.swt.latest_state[2])
-        st["swt"] = fw.swt
+            row["kind"] = kind or "before"
+        if swt is not None:
+            row["p"] = np.array(swt.latest_state[2])
         calls.append(row)
 
-    with card.health_log(swt_mod) as log:
-        golden_run.drive(vio, scene, golden_run.image_source(images, scene, cfg, args),
-                         on_frame=on_frame, n_frames=n_frames)
+    with followed(vio) as card:
+        run(on_frame, n_frames)
     meta = dict(dtype=dtype, planes=planes, from_t=from_t, reinits=vio.core.frontend.n_reinits,
                 initialized=vio.initialized, poses=len(vio.get_trajectory()),
                 device=torch.cuda.get_device_name(0) if device == "cuda" else device)
@@ -449,7 +443,6 @@ def main(argv=None):
     ap.add_argument("--no-planes", action="store_true")
     ap.add_argument("--emulate-card", action="store_true")
     ap.add_argument("--twin-from", type=float, default=None)
-    ap.add_argument("--twin-own-init", action="store_true")
     ap.add_argument("--record-from", type=float, default=None)
     ap.add_argument("--record-out", default=".artifacts/card_record.pkl")
     args = ap.parse_args(argv)
@@ -469,13 +462,14 @@ def main(argv=None):
         from tests import test_torch_golden_card as card
 
         t0 = time.perf_counter()
-        _, _, _, out = card.long_horizon_run(device, args.dtype, not args.no_planes)
+        _, _, _, out = card.long_horizon_run(device, args.dtype, not args.no_planes,
+                                              health_from=0.0)
         out.update(emulate_card=args.emulate_card, seconds=time.perf_counter() - t0)
         print("long " + json.dumps(out), flush=True)
     if args.record_from is not None:
         record_run(args.dtype, not args.no_planes, args.record_from, args.record_out, device)
     if args.twin_from is not None:
-        twin_run(args.dtype, not args.no_planes, args.twin_from, own_init=args.twin_own_init)
+        twin_run(args.dtype, not args.no_planes, args.twin_from)
     if args.response_check:
         response_check(args.frames, device)
     if args.plain_response:

@@ -24,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+from golden_spread import window_fields
+
 from tests.test_torch_harness import small_config
-from tests.test_torch_initializer import window_fields
 
 from pvio_tpu import PVIO as RefPVIO
 from pvio_tpu.core import core as ref_core

@@ -16,9 +16,10 @@ each file to one compilation of the reference's path.
 
 import numpy as np
 
+from golden_spread import followed, window_fields
+
 from tests.test_torch_facade import drive
 from tests.test_torch_harness import small_config
-from tests.test_torch_initializer import window_fields
 from tests.test_torch_oracle_pipeline import ref_window
 
 from pvio_tpu.core.feature_tracker import FeatureTracker as RefFeatureTracker
@@ -42,28 +43,19 @@ def run_port(scene, images, cfg=None, record=latest_state):
     `record(tracker)` after each call after the initializing one (the
     tracker's latest state by default)."""
     vio = PVIO(small_config() if cfg is None else cfg, device="cpu")
-    ft = vio.core.feature_tracker
-    raw, states, init = [], [], {}
-    finish = ft.finish_frame
-
-    def finish_frame(handle, fetched=None):
-        rf = finish(handle, fetched)
-        raw.append(rf)
-        return rf
-
-    ft.finish_frame = finish_frame
+    states, init = [], {}
 
     def after_call(fi):
+        kind, _ = port.after_call()
         swt = vio.core.frontend.swt
-        if swt is None:
-            return
-        if not init:
+        if kind == "init" and not init:
             init.update(fi=fi, window=window_fields(swt.hw))
-        else:
+        elif swt is not None:
             states.append(record(swt))
 
-    drive(vio, scene, images, after_call=after_call)
-    return vio, raw, init, states
+    with followed(vio) as port:
+        drive(vio, scene, images, after_call=after_call)
+    return vio, port.raw, init, states
 
 
 def test_facade_tracking_matches_reference_on_images():

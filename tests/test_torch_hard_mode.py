@@ -39,19 +39,19 @@ device-resident state its step chains on; masks and ids are its own and
 are held identical), and each step is held to 1e-9 px.
 """
 
+import contextlib
 import copy
 from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
 
-from golden_spread import tracker_fields
+from golden_spread import followed, tracker_fields, window_fields
 
 from tests.test_torch_facade import drive
 from tests.test_torch_facade_tracking import MAX_DP_M, MAX_KP_PX
 from tests.test_torch_golden_card import health_log
 from tests.test_torch_harness import small_config
-from tests.test_torch_initializer import window_fields
 from tests.test_torch_oracle_planes import MAX_PLANE_TOL, plane_state
 from tests.test_torch_planes import copy_state, extent_from_valid_members
 from tests.test_torch_oracle_pipeline import ref_window
@@ -63,7 +63,6 @@ from pvio_tpu.core import swt as ref_swt
 from pvio_tpu.core.swt import SlidingWindowTracker as RefSWT
 from pvio_tpu.io.config import Config as RefConfig
 from pvio_torch import PVIO
-from pvio_torch.core import swt as port_swt
 from pvio_torch.io import synthetic
 
 NOISE_AFTER = 1.45     # s: frame 29, the first after the initializing frame
@@ -135,36 +134,23 @@ def run_port_events(scene, images, cfg, full=False):
     where tracking was declared lost, "state" after every other call while
     tracking (`step_state`)."""
     vio = PVIO(cfg, device="cpu")
-    ft = vio.core.feature_tracker
-    raw, events, health, states = [], {}, {}, {}
-    finish = ft.finish_frame
-
-    def finish_frame(handle, fetched=None):
-        rf = finish(handle, fetched)
-        raw.append(rf)
-        return rf
-
-    ft.finish_frame = finish_frame
-    seen = dict(swt=None, lost=0, mark=0)
+    events, health, states = {}, {}, {}
 
     def after_call(fi):
-        fw = vio.core.frontend
-        if fw.n_reinits > seen["lost"]:
+        kind, health[fi] = port.after_call()
+        swt = vio.core.frontend.swt
+        if kind == "lost":
             events[fi] = ("lost", None)
-            seen["lost"] = fw.n_reinits
-        elif fw.swt is not None and fw.swt is not seen["swt"]:
-            events[fi] = ("init", window_fields(fw.swt.hw))
-            seen["swt"] = fw.swt
-        elif fw.swt is not None:
-            events[fi] = ("state", step_state(fw.swt))
-        if full and fw.swt is not None:
-            states[fi] = dict(window=window_fields(fw.swt.hw), **tracker_fields(fw.swt))
-        health[fi] = log[seen["mark"]:]
-        seen["mark"] = len(log)
+        elif kind == "init":
+            events[fi] = ("init", window_fields(swt.hw))
+        elif kind == "state":
+            events[fi] = ("state", step_state(swt))
+        if full and swt is not None:
+            states[fi] = dict(window=window_fields(swt.hw), **tracker_fields(swt))
 
-    with health_log(port_swt) as log:
+    with followed(vio) as port:
         drive(vio, scene, images, after_call=after_call)
-    return vio, raw, events, health, states
+    return vio, port.raw, events, health, states
 
 
 def parted(fi, kind, ok, a, b, port_health, ref_health):
@@ -204,6 +190,50 @@ def plane_gap(a, b):
                default=0.0)
 
 
+@contextlib.contextmanager
+def plane_casts(swt):
+    """While the block runs, record the reprojection errors the reference
+    tracker `swt`'s plane extractor weighs in `extend_planes` (each track
+    column cast onto each plane): yields a list that gets (columns, plane
+    slots, errors (C, P) px) for each call."""
+    casts, pe = [], swt.planes
+    if pe is None:
+        yield casts
+        return
+    real = pe._rpe_batch
+
+    def recorded(hw, points, cols=None):
+        out = real(hw, points, cols=cols)
+        if cols is not None and np.ndim(points) == 3:
+            casts.append((np.asarray(cols), np.nonzero(np.asarray(hw.plane_mask))[0],
+                          np.array(out)))
+        return out
+
+    pe._rpe_batch = recorded
+    try:
+        yield casts
+    finally:
+        del pe._rpe_batch
+
+
+def plane_margins(a, b, casts):
+    """For each column whose plane differs between the port's and the
+    reference's `step_state` (`a`, `b`): {column: (error cast onto the
+    port's plane, onto the reference's)} in px, from the reference's last
+    `extend_planes` weighing (`plane_casts`); None where it did not weigh
+    the column on both planes."""
+    if a is None or b is None or not casts:
+        return {}
+    cols, slots, err = casts[-1]
+    out = {}
+    for c in np.nonzero(np.asarray(a["plane_id"]) != np.asarray(b["plane_id"]))[0]:
+        i = np.nonzero(cols == c)[0]
+        j = [np.nonzero(slots == x["plane_id"][c])[0] for x in (a, b)]
+        out[int(c)] = (None if len(i) == 0 or not all(len(x) for x in j)
+                       else tuple(float(err[i[0], x[0]]) for x in j))
+    return out
+
+
 def lockstep(scene, images, cfg, cfg_ref, free_frontend=False, max_reinits=0, reseed=False,
              progress=None):
     """The port's facade at `cfg` over the scene's IMU and `images`, and the
@@ -218,8 +248,10 @@ def lockstep(scene, images, cfg, cfg_ref, free_frontend=False, max_reinits=0, re
     started from the port's whole state after the call before (window,
     counters, plane extractor): if it then agrees, the parting came from
     the rounding carried into the call (a decision at a tie), the record
-    keeps it in `reseeds` [(frame, why)] and the reference goes on from
-    there; if not, the call itself parts and the test fails.
+    keeps it in `reseeds` [(frame, why, margins)] and the reference goes
+    on from there; if not, the call itself parts and the test fails.
+    `margins` are the reference's errors of each column whose plane id
+    parted, cast onto either plane (`plane_margins`).
     Returns the port's engine, the initializing frames (`inits`, the first
     as `init_fi`) and the frames where tracking was lost (`lost`), the
     keyframes, the largest |dp| (m) and the largest of |dn|, |dd| and the
@@ -282,16 +314,19 @@ def lockstep(scene, images, cfg, cfg_ref, free_frontend=False, max_reinits=0, re
 
             def call(swt):
                 mark = len(ref_health)
-                ok = swt.track(r)
+                with plane_casts(swt) as casts:
+                    ok = swt.track(r)
                 b = step_state(swt) if ok and kind != "lost" else None
-                return ok, b, parted(fi, kind, ok, val, b, port_health[fi], ref_health[mark:])
+                why = parted(fi, kind, ok, val, b, port_health[fi], ref_health[mark:])
+                return ok, b, why, casts
 
-            ok, b, why = call(swt)
+            ok, b, why, casts = call(swt)
             if why is not None and reseed and fi - 1 in port_full:
+                margins = plane_margins(val, b, casts)
                 swt = ref_tracker(cfg_ref, kern, ft, port_full[fi - 1]["window"], port_full[fi - 1])
-                ok, b, again = call(swt)
+                ok, b, again, _ = call(swt)
                 assert again is None, f"{why}; from the port's state before the call: {again}"
-                reseeds.append((fi, why))
+                reseeds.append((fi, why, margins))
             else:
                 assert why is None, why
             health += [(fi, h) for h in port_health[fi]]

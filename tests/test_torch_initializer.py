@@ -26,26 +26,6 @@ SCENE = dict(duration=2.5, fps=20.0, imu_rate=200.0, n_points=320, seed=648)
 INIT_FRAME = 23          # the frame on which both packages initialize
 
 
-def window_fields(hw):
-    """Every field of a (reference or port) HostWindow as numpy values, the
-    prior as a dict of its fields (the input of `HostWindow.from_arrays`)."""
-    out = {}
-    for name, v in vars(hw).items():
-        if name in ("F", "T", "P", "dtype", "device"):
-            continue
-        if name == "prior":
-            v = {f: np.array(x.cpu().numpy() if hasattr(x, "cpu") else x)
-                 for f, x in zip(v._fields, v)}
-        elif isinstance(v, np.ndarray):
-            v = v.copy()
-        elif isinstance(v, list):
-            v = [None if x is None else np.array(x) for x in v]
-        elif isinstance(v, dict):
-            v = dict(v)
-        out[name] = v
-    return out
-
-
 def oracle_frames(cfg, scene, kp_noise_px=0.3):
     """Reference RawFrames of every scene frame, IMU spliced as
     `tests/test_pipeline.py::run_oracle` does."""

@@ -23,8 +23,10 @@ import copy
 import jax.numpy as jnp
 import numpy as np
 
+from golden_spread import window_fields
+
 from tests.test_torch_harness import small_config
-from tests.test_torch_initializer import INIT_FRAME, SCENE, window_fields
+from tests.test_torch_initializer import INIT_FRAME, SCENE
 
 from pvio_tpu.core.feature_tracker import RawFrame as RefRawFrame
 from pvio_tpu.core.host_window import HostWindow as RefHostWindow

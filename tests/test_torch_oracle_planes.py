@@ -21,8 +21,9 @@ asserts.
 
 import numpy as np
 
+from golden_spread import window_fields
+
 from tests.test_torch_oracle_pipeline import _Frames, imu_span, ref_window
-from tests.test_torch_initializer import window_fields
 from tests.test_torch_planes import extent_from_valid_members, plane_config
 
 from pvio_tpu.core.feature_tracker import RawFrame as RefRawFrame
