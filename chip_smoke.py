@@ -23,7 +23,10 @@ Phases; each raises on failure, so any failure exits non-zero:
      1x1 to 481x755 (one tile, one tile plus a pixel each way, 1x752) and
      a contiguous view 4 bytes into its storage; each case prints the load
      stage it took (TMA or per-thread loads), which must match the
-     launcher's plan, and both stages must occur. Then the detections it
+     launcher's plan, and both stages must occur; the same for its float64
+     form (a float64 image: the bench render, uniform noise, an odd width
+     and a view 8 bytes into its storage) at the float64 tolerance, and
+     its time. Then the detections it
      feeds, and its time beside the plain version's, the card's bound and
      a launch floor (the device time of a 1-element zero_()), and its time
      at 512x512 (phase 6's golden-shaped TUM-VI geometry). Then K1's
@@ -160,6 +163,10 @@ FP64_TC_FLOPS_PER_S = 67e12     # H100 SXM float64 on the tensor cores (E2's mix
 
 # K1 against its plain version: the kernel sums in another order in float32
 K1_REL_TOL, K1_ABS_TOL = 1e-6, 1e-9
+# K1's float64 form (a float64 image, fault F7's repair) against the plain
+# version at float64: another order in float64, ~1e7 times under the float32
+# form's own distance from it (~1e-7 of the response range)
+K1_F64_REL_TOL, K1_F64_ABS_TOL = 1e-13, 1e-18
 # the multi-sequence chain (BASELINE config 4): MS_B sequences (seeds 648 +
 # 31 i) through one vmapped chain of MS_GROUPS groups of MS_KF_EVERY frames;
 # the sequences MS_CHECK also run unbatched. Batched against unbatched, both
@@ -222,7 +229,9 @@ CLI_TIMEOUT_S = 400
 # decision differs; float32 2.2e-5 m at initialization, 5.1e-4 m from the
 # first tracked frame, 2.4e-3 m after the first keyframe (1.1e-5 m
 # throughout since the BA steps and the marginalization compute in
-# float64); float64 5.0e-6 m throughout. The bounds keep ~4x and ~10x.
+# float64); float64 5.0e-6 m throughout, while K1 computed a float64
+# image's response in float32 (fault F7, repaired). The bounds keep ~4x
+# and ~10x.
 MAX_FACADE_F32_DP_M = 1e-2
 MAX_FACADE_F64_DP_M = 5e-5
 # the sharded BA (phase 9): BASELINE config 5's enlarged window
@@ -1572,6 +1581,44 @@ def main():
             f"max|kernel - plain| = {err:.3e} (limit {lim:.3e})")
     if stages != {"tma", "threads"}:
         raise RuntimeError(f"K1's cases took only the load stage(s) {stages}")
+    # K1's float64 form: a float64 image is computed in float64 (fault F7)
+    g64 = torch.Generator(device="cpu").manual_seed(649)
+    flat64 = torch.rand(480 * 752 + 1, generator=g64, dtype=torch.float64).to(dev)
+    k1_f64_cases = [("bench render", pyr0[0].double().contiguous())] + [
+        (f"uniform {h}x{w_}", torch.rand(h, w_, generator=g64, dtype=torch.float64).to(dev))
+        for h, w_ in [(480, 752), (481, 755), (3, 5)]] + [
+        ("misaligned view 480x752", flat64[1:].view(480, 752))]
+    stages = set()
+    for name, img in k1_f64_cases:
+        plan = stencil.launch_plan(*img.shape, img.data_ptr(), itemsize=8)
+        if stencil.kernel_plan(*img.shape, img.data_ptr(), itemsize=8) != plan:
+            raise RuntimeError(f"K1 launcher and launch_plan disagree on {name} (float64)")
+        stages.add("tma" if plan.tma else "threads")
+        before = stencil.LAUNCHES
+        out = stencil.shi_tomasi_response(img)
+        torch.cuda.synchronize()
+        if stencil.LAUNCHES != before + 1 or out.dtype != torch.float64:
+            raise RuntimeError("K1 wrapper did not launch its float64 form once")
+        ref = detect.shi_tomasi_response(img)
+        err = float((out - ref).abs().max())
+        lim = K1_F64_REL_TOL * float(ref.abs().max()) + K1_F64_ABS_TOL
+        if not (err <= lim and torch.isfinite(out).all()):
+            raise RuntimeError(f"K1 float64 disagrees with its plain version on {name}: "
+                               f"{err} > {lim}")
+        log(f"[2] K1 float64 {name} {tuple(img.shape)}: load stage "
+            f"{'tma' if plan.tma else 'threads'}, max|kernel - plain| = {err:.3e} "
+            f"(limit {lim:.3e})")
+    if stages != {"tma", "threads"}:
+        raise RuntimeError(f"K1's float64 cases took only the load stage(s) {stages}")
+    img64 = k1_f64_cases[0][1]
+    k1_f64_ms = device_ms(lambda: stencil.shi_tomasi_response(img64), kernel="shi_tomasi_kernel",
+                          count=lambda: stencil.LAUNCHES)
+    k1_f64_plain = device_ms(lambda: detect.shi_tomasi_response(img64))
+    nbytes, nflops = stencil.cost(*img64.shape, itemsize=8)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nflops / FP64_FLOPS_PER_S * 1e3
+    log(f"[2] K1 float64 at {tuple(img64.shape)}: device {k1_f64_ms:.6f} ms/launch, plain "
+        f"version {k1_f64_plain:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B, {nflops} flop)")
     img0 = pyr0[0].contiguous()
     r_k, r_p = stencil.shi_tomasi_response(img0), detect.shi_tomasi_response(img0)
     xy_k, m_k = kern.detect(img0, torch.zeros(1, 2, device=dev), torch.zeros(1, dtype=torch.bool, device=dev), r_k)

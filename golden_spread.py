@@ -3,7 +3,7 @@ over several room textures, and gap G1's check (kernel K1 against the
 plain Shi-Tomasi response at float64 on the hard-mode frames).
 
     python3 golden_spread.py --seeds 7 1 2 [--dtype float64] [--plain-response] [--cpu]
-    python3 golden_spread.py --response-check [--frames 0 59 60 120 239]
+    python3 golden_spread.py --response-check [--frames 0 59 60 120 239] [--response-long]
 
 Each run goes through the card test's `golden` helper
 (`tests/test_torch_golden_card.py`) with its hard-mode flags
@@ -14,11 +14,14 @@ and then planes off over the same frames, and prints one JSON line a run
 poses, re-inits, planes held, initialization frame, seconds).
 `--plain-response` takes the plain version (`frontend.detect.
 shi_tomasi_response`, which computes at the image's dtype) where the
-engine launches K1 (which computes in float32). `--response-check` holds
+engine launches K1 (the same function at the image's dtype since fault F7's
+repair; before it, K1 computed in float32). `--response-check` holds
 K1's response to the plain version's on the preprocessed hard-mode frames
-at float64 and compares the detections each gives (`check {...}` lines;
-the frames are rendered alone, so their noise stream starts at the first
-noisy frame given).
+(`--response-long`: the 60 s endurance frames) at float64 and compares the
+detections each gives, for K1 on the image and on its float32 cast (`f32_`
+keys: K1's arithmetic at float64 before fault F7's repair; `check {...}`
+lines; the frames are rendered alone, so their noise stream starts at the
+first noisy frame given).
 Without a card it stops unless given `--cpu`.
 
     python3 golden_spread.py --long [--dtype float64] [--no-planes] [--cpu [--emulate-card]]
@@ -29,7 +32,7 @@ Without a card it stops unless given `--cpu`.
 record as one JSON line (`long {...}`), with the landmark-starvation
 backstop's decision at every keyframe of the run. With `--cpu
 --emulate-card` the CPU engine takes the card's algorithms where its plain
-versions differ (`emulate_card`): K1's response computed in float32, E1's
+versions differ (`emulate_card`): K1's response at its compute dtype, E1's
 and E2's Jacobi (`ops/eigh.py::jacobi_model`) for `torch.linalg.eigh`, and
 the card's struct-of-arrays preintegration bank in the BA. `--twin-from T`
 runs that case on the card and, from the first call at or after T s, a
@@ -40,6 +43,20 @@ whose discrete values differ (`twin {...}` lines, and a `twin-summary`
 line naming the first call at which a discrete field differs). When the
 card declares tracking lost the twin must too; at the card's next
 initializing call the twin starts again from the card's window.
+
+    python3 golden_spread.py --long --raw-out RAW.json [--imu-seed S --imu-eps E]
+        [--plain-response] [--commit SHA] [--program TEXT]
+
+`--imu-seed S --imu-eps E` multiplies every IMU sample of the scene by
+1 + E * u (`perturb_imu`; E as a number or as `2**-52`), fault F7's
+rounding-level perturbation. `--raw-out` writes the run's raw record (its
+trajectory, the frontend's losses and initializations, the backstop's
+decision at every keyframe, the card's `nvidia-smi` name and power limit,
+`--commit` and `--program`, a note of what the tree holds beyond the commit)
+for `tests/test_torch_f7_ensemble.py::f7_record`. `--plain-response`, a
+diagnostic of this process only, puts K1's plain version where the engine
+launches K1, for `--long` as for `--seeds` (F7's swap: the first of K1, E1
+and E2, S1 that the decision called for, and the one that named K1).
 `--record-from T [--record-out PATH]` records the card's run from T s (its
 raw frames, its tracker's state at T and at each re-initialization, the
 backstop's records) for `tests/test_torch_long_horizon_full.py::
@@ -66,9 +83,11 @@ def spread_run(seed, dtype, planes, device):
                 init_fi=rec["init_fi"], seconds=time.perf_counter() - t0)
 
 
-def response_check(frames, device):
+def response_check(frames, device, flags=None):
     """K1 against the plain response on the preprocessed level-0 images of
-    the hard-mode frames (float64 engine), and the detections of each."""
+    the hard-mode frames (or the frames of golden_run `flags`; float64
+    engine), and the detections of each; also K1 on the float32 cast of
+    the image (its arithmetic at float64 before fault F7's repair)."""
     import torch
 
     from pvio_torch import golden_run
@@ -77,25 +96,29 @@ def response_check(frames, device):
     from pvio_torch.ops import stencil
     from tests import test_torch_golden_card as card
 
-    args = golden_run.parse_args(card.HARD_MODE + ["--dtype", "float64"])
+    args = golden_run.parse_args(flags or card.HARD_MODE + ["--dtype", "float64"])
     cfg, scene = golden_run.build_config(args), golden_run.make_scene(args)
     images = golden_run.render_images(scene, cfg, args, frames=frames)
     kern = DeviceKernels(cfg, device=device)
     for fi, img in zip(frames, images):
         lvl0 = kern.preprocess(img)[0].contiguous()
-        r_k1, r_plain = stencil.shi_tomasi_response(lvl0), detect.shi_tomasi_response(lvl0)
+        r_plain = detect.shi_tomasi_response(lvl0)
         kw = dict(max_keypoints=cfg.feature_tracker_max_keypoint_detection,
                   min_distance=cfg.feature_tracker_min_keypoint_distance, border=20)
-        (xy1, m1), (xy2, m2) = (detect.detect_keypoints(lvl0, response=r, **kw)
-                                for r in (r_k1, r_plain))
-        same = bool(torch.equal(m1, m2))
-        both = m1 & m2
-        dxy = float((xy1[both] - xy2[both]).abs().max()) if bool(both.any()) else 0.0
+        xy2, m2 = detect.detect_keypoints(lvl0, response=r_plain, **kw)
         out = dict(frame=fi, noisy=bool(scene.frame_t[fi] >= args.noise_after),
-                   resp_max=float(r_plain.abs().max()),
-                   resp_max_abs_diff=float((r_k1 - r_plain).abs().max()),
-                   detected=(int(m1.sum()), int(m2.sum())), same_slots=same,
-                   slot_diffs=int((m1 != m2).sum()), max_dxy_px=dxy)
+                   dtype=str(lvl0.dtype), resp_max=float(r_plain.abs().max()))
+        for tag, img in (("", lvl0), ("f32_", lvl0.to(torch.float32))):
+            r_k1 = stencil.shi_tomasi_response(img).to(lvl0.dtype)
+            xy1, m1 = detect.detect_keypoints(lvl0, response=r_k1, **kw)
+            both = m1 & m2
+            out.update({
+                tag + "resp_max_abs_diff": float((r_k1 - r_plain).abs().max()),
+                tag + "detected": (int(m1.sum()), int(m2.sum())),
+                tag + "same_slots": bool(torch.equal(m1, m2)),
+                tag + "slot_diffs": int((m1 != m2).sum()),
+                tag + "max_dxy_px": float((xy1[both] - xy2[both]).abs().max())
+                if bool(both.any()) else 0.0})
         print("check " + json.dumps(out), flush=True)
 
 
@@ -140,8 +163,8 @@ def emulate_card(response=True):
     """Patch this process's CPU paths to the card's algorithms: E1 and E2
     (`jacobi_eigh`) for `ops.eigh.eigh`, every new engine's BA on the card's
     preintegration bank (the struct-of-arrays `estimation/preint_soa.py`)
-    and, with `response`, K1's response
-    computed in float32 (its launcher casts the image to float32 and the
+    and, with `response`, K1's response computed at `stencil.compute_dtype`
+    of the image (the launcher casts any other dtype to float32 and the
     response back) for `ops.stencil.shi_tomasi_response`. The initializer's
     two-view DLT keeps `torch.linalg.eigh`, as on the card."""
     global _REAL_EIGH
@@ -163,13 +186,26 @@ def emulate_card(response=True):
 
     kernels.DeviceKernels.__init__ = init_on_card_bank
     if response:
-        def response_f32(img):
+        def response_as_k1(img):
             H, W = img.shape[-2:]
-            flat = img.reshape(-1, H, W).to(torch.float32)
+            flat = img.reshape(-1, H, W).to(stencil.compute_dtype(img.dtype))
             out = torch.stack([detect.shi_tomasi_response(x) for x in flat])
             return out.reshape(img.shape).to(img.dtype)
 
-        stencil.shi_tomasi_response = response_f32
+        stencil.shi_tomasi_response = response_as_k1
+
+
+def perturb_imu(scene, seed, eps):
+    """`scene` (either package's `SyntheticScene`) with every gyroscope and
+    accelerometer sample multiplied by 1 + eps * u, u uniform in [-1, 1)
+    from `numpy.random.default_rng(seed)` (gyroscope first); times, poses
+    and frames are the scene's own."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gyro = scene.gyro * (1.0 + eps * rng.uniform(-1.0, 1.0, np.shape(scene.gyro)))
+    accel = scene.accel * (1.0 + eps * rng.uniform(-1.0, 1.0, np.shape(scene.accel)))
+    return scene._replace(gyro=gyro, accel=accel)
 
 
 def long_flags(dtype, planes):
@@ -431,6 +467,43 @@ def record_run(dtype, planes, from_t, out, device="cuda", n_frames=None):
     print("record " + json.dumps(dict(meta, out=out, calls=len(calls))), flush=True)
 
 
+def _eps(text):
+    return 2.0 ** float(text[3:]) if text.startswith("2**") else float(text)
+
+
+def long_run(args, device, swaps):
+    """`--long`: the endurance case, its `long` line, and with `--raw-out`
+    the raw run that `tests/test_torch_f7_ensemble.py::f7_record` reads."""
+    import subprocess
+
+    import torch
+
+    from tests import test_torch_f7_ensemble as f7
+    from tests import test_torch_golden_card as card
+
+    t0 = time.perf_counter()
+    vio, _, _, out = card.long_horizon_run(device, args.dtype, not args.no_planes,
+                                          health_from=0.0)
+    seconds = time.perf_counter() - t0
+    out.update(emulate_card=args.emulate_card, swap=swaps, imu_seed=args.imu_seed,
+               imu_eps=args.imu_eps, seconds=seconds)
+    print("long " + json.dumps(out), flush=True)
+    if args.raw_out:
+        smi = None
+        if device == "cuda":
+            smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"], capture_output=True,
+                                 text=True).stdout.strip().splitlines()[0]
+        raw = f7.raw_run("pvio_torch", device, args.imu_eps, args.imu_seed, vio, out["events"],
+                         out["health"], init_fi=out["init_fi"], swap=swaps, card=smi,
+                         commit=args.commit or f7.tree_commit(), program=args.program,
+                         seconds=seconds,
+                         dtype=args.dtype, planes=not args.no_planes,
+                         torch=torch.__version__)
+        with open(args.raw_out, "w") as f:
+            json.dump(raw, f)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="*", default=[])
@@ -439,12 +512,18 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--response-check", action="store_true")
     ap.add_argument("--frames", type=int, nargs="*", default=[0, 59, 60, 120, 239])
+    ap.add_argument("--response-long", action="store_true")
     ap.add_argument("--long", action="store_true")
     ap.add_argument("--no-planes", action="store_true")
     ap.add_argument("--emulate-card", action="store_true")
     ap.add_argument("--twin-from", type=float, default=None)
     ap.add_argument("--record-from", type=float, default=None)
     ap.add_argument("--record-out", default=".artifacts/card_record.pkl")
+    ap.add_argument("--imu-seed", type=int, default=None)
+    ap.add_argument("--imu-eps", type=_eps, default=0.0)
+    ap.add_argument("--raw-out", default=None)
+    ap.add_argument("--commit", default=None)
+    ap.add_argument("--program", default=None)
     args = ap.parse_args(argv)
     import torch
 
@@ -458,25 +537,28 @@ def main(argv=None):
                   file=sys.stderr)
             return 2
         emulate_card()
-    if args.long:
-        from tests import test_torch_golden_card as card
-
-        t0 = time.perf_counter()
-        _, _, _, out = card.long_horizon_run(device, args.dtype, not args.no_planes,
-                                              health_from=0.0)
-        out.update(emulate_card=args.emulate_card, seconds=time.perf_counter() - t0)
-        print("long " + json.dumps(out), flush=True)
-    if args.record_from is not None:
-        record_run(args.dtype, not args.no_planes, args.record_from, args.record_out, device)
-    if args.twin_from is not None:
-        twin_run(args.dtype, not args.no_planes, args.twin_from)
-    if args.response_check:
-        response_check(args.frames, device)
+    swaps = None
     if args.plain_response:
         from pvio_torch.frontend import detect
         from pvio_torch.ops import stencil
 
         stencil.shi_tomasi_response = detect.shi_tomasi_response
+        swaps = "K1"
+    if args.imu_eps:
+        from pvio_torch import golden_run
+
+        make_scene = golden_run.make_scene
+        golden_run.make_scene = lambda a: perturb_imu(make_scene(a), args.imu_seed,
+                                                      args.imu_eps)
+    if args.long:
+        long_run(args, device, swaps)
+    if args.record_from is not None:
+        record_run(args.dtype, not args.no_planes, args.record_from, args.record_out, device)
+    if args.twin_from is not None:
+        twin_run(args.dtype, not args.no_planes, args.twin_from)
+    if args.response_check:
+        response_check(args.frames, device,
+                       long_flags(args.dtype, True) if args.response_long else None)
     for seed in args.seeds:
         for planes in (True, False):
             rec = spread_run(seed, args.dtype, planes, device)

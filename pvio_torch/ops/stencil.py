@@ -11,8 +11,12 @@ launch latency sets its time at this size).
 `pvio::shi_tomasi` on an (H, W) image or a (..., H, W) stack: a CPU tensor
 takes the plain PyTorch version (`frontend.detect.shi_tomasi_response`,
 the oracle, image by image); a CUDA tensor launches the kernel or raises.
-Like the TPU wrapper (`pvio_tpu/ops/stencil.py:83-100`) it computes in
-float32 and returns the input dtype. The plain version and the kernel agree
+The kernel computes at the image's dtype, as the plain version does: float64
+for a float64 image, float32 for any other (cast in, and the response cast
+back). The TPU wrapper (`pvio_tpu/ops/stencil.py:83-100`) computes in
+float32 whatever the dtype; a float32 response at float64 moved the card's
+60 s float64 run off the reference's outcome (fault F7, ROADMAP §3), so the
+float64 form exists. The plain version and the kernel agree
 over the WHOLE image, borders included (zero padding for the image taps,
 zero gradient products outside the image). The op's vmap rule moves the
 batch dimension to the front and makes ONE launch for the whole stack, so
@@ -58,20 +62,28 @@ class Plan(NamedTuple):
     tma: bool        # True: one TMA copy loads the tile; False: per-thread loads
 
 
-def launch_plan(H, W, data_ptr):
-    """The launch of K1 for an (H, W) float32 image at address data_ptr.
-    TMA needs a 16-B aligned base and a row stride that is a multiple of
-    16 B; any other input takes the kernel's per-thread load stage."""
+def launch_plan(H, W, data_ptr, itemsize=4):
+    """The launch of K1 for an (H, W) image of `itemsize`-byte elements
+    (float32, or 8 for float64) at address data_ptr. TMA needs a 16-B
+    aligned base and a row stride that is a multiple of 16 B; any other
+    input takes the kernel's per-thread load stage."""
     th, tw = TILE
     return Plan(tile=TILE, grid=(-(-W // tw), -(-H // th)),
                 box=(th - 2 * BOX_OFFSET[0], tw - 2 * BOX_OFFSET[1]),
-                tma=W % 4 == 0 and data_ptr % 16 == 0)
+                tma=(W * itemsize) % 16 == 0 and data_ptr % 16 == 0)
 
 
-def cost(H, W, B=1):
+def compute_dtype(dtype):
+    """The dtype K1 computes in for an image of `dtype`: float64 stays,
+    anything else is computed in float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def cost(H, W, B=1, itemsize=4):
     """(bytes, flops) the response must move and compute for B images of
-    (H, W) in float32: each image read once, each response written once."""
-    return 2 * B * H * W * 4, FLOPS_PER_PIXEL * B * H * W
+    (H, W) at `itemsize` bytes an element: each image read once, each
+    response written once."""
+    return 2 * B * H * W * itemsize, FLOPS_PER_PIXEL * B * H * W
 
 
 def _lib():
@@ -81,8 +93,10 @@ def _lib():
         lib.pvio_shi_tomasi.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.pvio_shi_tomasi.restype = ctypes.c_int
+        lib.pvio_shi_tomasi_f64.argtypes = lib.pvio_shi_tomasi.argtypes
+        lib.pvio_shi_tomasi_f64.restype = ctypes.c_int
         lib.pvio_shi_tomasi_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                             ctypes.POINTER(ctypes.c_int)]
+                                             ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.pvio_shi_tomasi_plan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -95,23 +109,25 @@ def build():
     return log
 
 
-def kernel_plan(H, W, data_ptr):
+def kernel_plan(H, W, data_ptr, itemsize=4):
     """The plan the CUDA launcher takes (its own rule, compiled), as a
     Plan, so it can be held against launch_plan."""
     p = (ctypes.c_int * 7)()
-    _lib().pvio_shi_tomasi_plan(H, W, data_ptr, p)
+    _lib().pvio_shi_tomasi_plan(H, W, data_ptr, itemsize, p)
     return Plan(tile=(p[0], p[1]), grid=(p[2], p[3]), box=(p[5], p[6]), tma=bool(p[4]))
 
 
 def shi_tomasi_response_cuda(img):
     """Launch K1 once on a contiguous CUDA tensor of one (H, W) image or a
-    (..., H, W) stack; returns the responses in img's dtype."""
+    (..., H, W) stack, in `compute_dtype(img.dtype)`; returns the responses
+    in img's dtype."""
     global LAUNCHES
     if img.device.type != "cuda":
         raise ValueError(f"shi_tomasi_response_cuda: needs a CUDA tensor, got {img.device}")
     if img.dim() < 2:
         raise ValueError(f"shi_tomasi_response_cuda: needs (..., H, W), got {tuple(img.shape)}")
-    x = img if img.dtype == torch.float32 else img.to(torch.float32)
+    cdt = compute_dtype(img.dtype)
+    x = img if img.dtype == cdt else img.to(cdt)
     if not x.is_contiguous():
         raise ValueError("shi_tomasi_response_cuda: input must be contiguous")
     H, W = x.shape[-2:]
@@ -119,7 +135,7 @@ def shi_tomasi_response_cuda(img):
     if H == 0 or W == 0 or B == 0 or H * W >= 2 ** 31 or B > 65535:
         raise ValueError(f"shi_tomasi_response_cuda: unsupported shape {tuple(x.shape)}")
     out = torch.empty_like(x)
-    fn = _lib().pvio_shi_tomasi
+    fn = _lib().pvio_shi_tomasi_f64 if cdt == torch.float64 else _lib().pvio_shi_tomasi
     idx = x.device.index
     # the launcher launches on the current device: switch only when needed
     with (contextlib.nullcontext() if idx == torch.cuda.current_device()
@@ -130,7 +146,7 @@ def shi_tomasi_response_cuda(img):
     if err != 0:
         raise RuntimeError(f"shi_tomasi kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return out if img.dtype == torch.float32 else out.to(img.dtype)
+    return out if img.dtype == cdt else out.to(img.dtype)
 
 
 @torch.library.custom_op("pvio::shi_tomasi", mutates_args=(), device_types="cpu")

@@ -54,6 +54,37 @@ def test_shi_tomasi_kernel_matches_plain_on_card(H, W, offset):
         stencil.shi_tomasi_response(torch.zeros(8, 6, device="cuda").t())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,offset", K1_CASES + [(37, 130, 0), (480, 752, 2)])
+def test_shi_tomasi_kernel_float64_matches_plain_on_card(H, W, offset):
+    """K1 on a float64 image computes in float64 (fault F7's repair): held to
+    the plain version at float64 within 1e-13 of the response range plus
+    1e-18, where the float32 form parts by ~1e-7 of it. The load stage is
+    TMA exactly for an aligned image whose rows are a multiple of 16 B (W
+    even)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pvio_torch.frontend import detect
+    from pvio_torch.ops import stencil
+
+    rng = np.random.default_rng(7)
+    flat = torch.as_tensor(rng.uniform(size=H * W + offset), dtype=torch.float64, device="cuda")
+    img = flat[offset:].view(H, W)
+    plan = stencil.launch_plan(H, W, img.data_ptr(), itemsize=8)
+    assert plan.tma == (offset % 2 == 0 and W % 2 == 0)
+    assert stencil.kernel_plan(H, W, img.data_ptr(), itemsize=8) == plan
+    before = stencil.LAUNCHES
+    out = stencil.shi_tomasi_response(img)
+    torch.cuda.synchronize()
+    ref = detect.shi_tomasi_response(img)
+    assert stencil.LAUNCHES == before + 1 and out.dtype == torch.float64
+    err = float((out - ref).abs().max())
+    f32 = float((stencil.shi_tomasi_response(img.float()).double() - ref).abs().max())
+    print(f"K1 float64 {H}x{W}+{offset}: max|kernel - plain| {err:.3e} (float32 form {f32:.3e}), "
+          f"range {float(ref.abs().max()):.3e}")
+    assert err <= 1e-13 * float(ref.abs().max()) + 1e-18, (H, W, offset, err)
+
+
 # ---------------------------------------------------------------------------
 # the keyframe step on the card against the same calls on the CPU (float32,
 # the pipeline tests' small configuration, planes on), within the bounds

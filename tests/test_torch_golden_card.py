@@ -265,17 +265,63 @@ def health_log(swt_module):
         swt_module.health_update = real
 
 
+@contextlib.contextmanager
+def event_log(fw_module):
+    """Record what each tracked frame did to the frontend's state machine
+    (`fw_module.FrontendWorker.issue_frame`; the port's `pvio_torch.core.
+    frontend_worker` or the reference's `pvio_tpu.core.frontend_worker`)
+    while the block runs. Yields the list of records, one for each frame
+    that initialized a window or lost tracking: `kind` ("init" or "lost")
+    and the frame's time `t`."""
+    cls = fw_module.FrontendWorker
+    real = cls.issue_frame
+    log = []
+
+    def logged(self, raw_frame):
+        swt, n = self.swt, self.n_reinits
+        out = real(self, raw_frame)
+        if self.n_reinits > n:
+            log.append(dict(kind="lost", t=float(raw_frame.t)))
+        elif self.swt is not None and self.swt is not swt:
+            log.append(dict(kind="init", t=float(raw_frame.t)))
+        return out
+
+    cls.issue_frame = logged
+    try:
+        yield log
+    finally:
+        cls.issue_frame = real
+
+
+def seg_ate(traj, scene, lo, hi):
+    """The ATE (m, with the scale left free) and the scale of the poses of
+    `traj` [(t, q, p)] at frame times in [lo, hi) against `scene`'s ground
+    truth, and how many there are; (None, None, n) under 20 poses."""
+    from pvio_torch.geometry import wahba
+
+    t2idx = {round(t, 6): i for i, t in enumerate(scene.frame_t)}
+    kept = [(t, p) for (t, q, p) in traj if lo <= t < hi and t2idx.get(round(t, 6)) is not None]
+    if len(kept) < 20:
+        return None, None, len(kept)
+    est = torch.as_tensor(np.array([p for _, p in kept]), dtype=torch.float64)
+    gt = torch.as_tensor(np.array([scene.p_wb[t2idx[round(t, 6)]] for t, _ in kept]),
+                         dtype=torch.float64)
+    s, _, _ = wahba.find_srt(est, gt)
+    return float(wahba.ate_rmse(est, gt, with_scale=False)), float(s), len(kept)
+
+
 def long_horizon_run(device, dtype, planes, health_from=HEALTH_LOG_FROM):
     """The 60 s endurance run of test_golden_long_horizon_production_gates
     on `device` over one render of its frames (`LONG_CACHE`), and what its
     contract reads: returns the engine, the trajectory, the output gaps
     over 0.5 s, and the record the test prints (the contract's numbers,
     device memory every MEMORY_EVERY frames after initialization, ms and
-    host waits per call by quarter, the kernels' launches, and the
-    backstop's decision at every keyframe from `health_from` s on,
+    host waits per call by quarter, the kernels' launches, the times at
+    which tracking was lost and (re)initialized, `event_log`'s records, and
+    the backstop's decision at every keyframe from `health_from` s on,
     `health_log`'s records)."""
+    from pvio_torch.core import frontend_worker as fw_mod
     from pvio_torch.core import swt as swt_mod
-    from pvio_torch.geometry import wahba
     from pvio_torch.ops import eigh as eigh_op
     from pvio_torch.ops import poisson, stencil
     from pvio_torch.utils import transfer
@@ -293,7 +339,7 @@ def long_horizon_run(device, dtype, planes, health_from=HEALTH_LOG_FROM):
 
     stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
     eigh_op.BLOCK_LAUNCHES.clear()
-    with health_log(swt_mod) as health:
+    with health_log(swt_mod) as health, event_log(fw_mod) as events:
         vio, scene, rec, r = golden(
             LONG_HORIZON + ["--dtype", dtype] + ([] if planes else ["--no-planes"]), device,
             on_frame=on_frame, cache_prefix=LONG_CACHE)
@@ -301,32 +347,20 @@ def long_horizon_run(device, dtype, planes, health_from=HEALTH_LOG_FROM):
                     sym_eig=eigh_op.LAUNCHES,
                     sym_eig_block={int(n): c for n, c in sorted(eigh_op.BLOCK_LAUNCHES.items())})
 
-    t2idx = {round(t, 6): i for i, t in enumerate(scene.frame_t)}
-
-    def seg_ate(traj, lo, hi):
-        kept = [(t, p) for (t, q, p) in traj if lo <= t < hi and t2idx.get(round(t, 6)) is not None]
-        if len(kept) < 20:
-            return None, None, len(kept)
-        est = torch.as_tensor(np.array([p for _, p in kept]), dtype=torch.float64)
-        gt = torch.as_tensor(np.array([scene.p_wb[t2idx[round(t, 6)]] for t, _ in kept]),
-                             dtype=torch.float64)
-        s, _, _ = wahba.find_srt(est, gt)
-        return float(wahba.ate_rmse(est, gt, with_scale=False)), float(s), len(kept)
-
     traj = vio.get_trajectory()
     ts = [t for (t, q, p) in traj]
     reinits = vio.core.frontend.n_reinits
-    first30 = seg_ate(traj, 0.0, 30.0)
+    first30 = seg_ate(traj, scene, 0.0, 30.0)
     gaps = [(ts[i], ts[i + 1]) for i in range(len(ts) - 1) if ts[i + 1] - ts[i] > 0.5]
     t_rec = gaps[-1][1] if gaps else None
-    whole = seg_ate(traj, 0.0, 60.0)
-    post = seg_ate(traj, t_rec + 1.0, 60.0) if t_rec is not None else (None, None, 0)
+    whole = seg_ate(traj, scene, 0.0, 60.0)
+    post = seg_ate(traj, scene, t_rec + 1.0, 60.0) if t_rec is not None else (None, None, 0)
     out = dict(device=device, dtype=dtype, planes=planes, initialized=vio.initialized,
                reinits=reinits, poses=len(traj), init_fi=rec["init_fi"],
                n_planes=len(vio.get_planes()), first30=first30, whole=whole, t_rec=t_rec,
                post=post, quarters=r["quarters"], kf_steps=rec["kf_steps"], launches=launches,
                **long_horizon_record(rec["calls"], waits, memory, rec["n_frames"]),
-               health=[h for h in health if h["t"] >= health_from])
+               events=events, health=[h for h in health if h["t"] >= health_from])
     return vio, traj, gaps, out
 
 

@@ -79,3 +79,36 @@ def test_wrapper_takes_the_plain_version_on_cpu(shape, dtype):
     assert stencil.LAUNCHES == before
     assert out.dtype == dtype and out.shape == img.shape
     assert torch.equal(out, detect.shi_tomasi_response(img))
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 130, 752, 755])
+@pytest.mark.parametrize("offset", [0, 8, 16, 24])
+def test_launch_plan_at_float64_takes_tma_for_16_byte_rows(W, offset):
+    """K1's float64 form (fault F7's repair): the same tile and box, TMA
+    where the base is 16-B aligned and a row of W float64 values is a
+    multiple of 16 B (W even); the box's rows and every block's start stay
+    16-B multiples at 8 B an element."""
+    plan = stencil.launch_plan(37, W, 0x7F0000000000 + offset, itemsize=8)
+    assert plan.tma == (W % 2 == 0 and offset % 16 == 0)
+    assert plan[:3] == stencil.launch_plan(37, W, 0)[:3]
+    (oy, ox), (th, tw) = stencil.BOX_OFFSET, plan.tile
+    assert (plan.box[1] * 8) % 16 == 0
+    assert all(((bx * tw + ox) * 8) % 16 == 0 for bx in range(plan.grid[0]))
+    assert stencil.cost(480, 752, itemsize=8)[0] == 2 * stencil.cost(480, 752)[0]
+
+
+def test_k1_computes_at_the_image_dtype():
+    """The wrapper launches K1's float64 entry for a float64 image and the
+    float32 one for any other dtype, so at float64 the card's response is
+    the plain version's function at the plain version's precision (the
+    60 s float64 run on the card took the reference's outcome only with a
+    float64 response, fault F7). The source exports both entries and the
+    plan's element size."""
+    assert stencil.compute_dtype(torch.float64) == torch.float64
+    for dt in (torch.float32, torch.float16, torch.bfloat16, torch.uint8):
+        assert stencil.compute_dtype(dt) == torch.float32
+    src = stencil.SOURCE.read_text()
+    assert re.search(r'extern "C" int pvio_shi_tomasi_f64\(const double\* img, double\* out', src)
+    assert re.search(r'extern "C" int pvio_shi_tomasi\(const float\* img, float\* out', src)
+    assert re.search(r"pvio_shi_tomasi_plan\(int H, int W, const void\* img, int elem", src)
+    assert "CU_TENSOR_MAP_DATA_TYPE_FLOAT64" in src
