@@ -71,8 +71,8 @@ Phases; each raises on failure, so any failure exits non-zero:
      planes off at Config()'s detect-skip (Core caps the depth at 1, as the
      reference's `run.py --fast` runs it) and with detection on every
      frame (two frames in flight), each on the first FACADE_FAST_FRAMES
-     frames; then planes on (Config()'s default) at the detect-skip over
-     the whole stream. Each run must initialize,
+     frames; then planes on (Config()'s default) at the detect-skip on the
+     first FACADE_PLANES_FRAMES. Each run must initialize,
      never re-initialize, emit a pose for every frame after initialization
      (less the frames in flight: the pipeline depth and the SWT stage),
      launch K1 once per frame and keep its ATE under FACADE_MAX_ATE_M; the
@@ -95,13 +95,15 @@ Phases; each raises on failure, so any failure exits non-zero:
      the card's positions within MAX_FACADE_F32_DP_M / MAX_FACADE_F64_DP_M
      of the CPU's before it. Then the CLI on the card in a process of its
      own, `python -m pvio_torch.run synthetic` sequentially and with `--fast
-     --view3d` (planes on, float32): each exits 0, writes one TUM line per
+     --view3d` (planes on, float32), each on its first CLI_MAX_FRAMES
+     frames: each exits 0, writes one TUM line per
      pose it reports, finite poses, its printed ATE under CLI_MAX_ATE_M
      (fault F4's bound), and prints its initialization frame; the second
      writes a non-empty 3D viewer page. Last, the golden-shaped run: the
      golden harness's pieces (`pvio_torch.golden_run`) on
      config/tum-vi.yaml at float32 (512x512, the equidistant undistorter
-     in the loop) over a FACADE_SECONDS stream: it must initialize, never
+     in the loop) over the first GOLDEN_FRAMES frames of a FACADE_SECONDS
+     stream: it must initialize, never
      re-initialize, launch K1 once per frame and keep its ATE under
      FACADE_MAX_ATE_M; it prints the ms per track_camera call by state, and
      K1 at 512x512 against its plain version on its first frame;
@@ -129,10 +131,14 @@ Phases; each raises on failure, so any failure exits non-zero:
      per sharded solve beside ba.solve's; no synchronising call in a warm
      solve (one runs under sync debug mode "error"); a CUDA window through
      the checkpoint and back, every leaf equal;
- 10. the kernel table (JSON; the single-image entries' launches are the
-     planes-on sequential run's, the 512x512 entry's the golden-shaped
-     run's, the batched entries' the vmapped chain's),
-     the total time, the nvidia-smi line and, last, the result.
+ 10. the seconds each phase took and the total (a `phase_seconds` JSON
+     line; each phase also logs its own seconds as the next begins), the
+     kernel table (JSON; the single-image entries' launches are the
+     planes-on sequential run's, K1's float64 entry's the float64 card run
+     of phase 6's card-vs-CPU comparison, where every K1 launch must be the
+     float64 form's, the 512x512 entry's the golden-shaped run's, the
+     batched entries' the vmapped chain's), the nvidia-smi line and, last,
+     the result.
 
 Exits non-zero, printing no result, when CUDA is not available or the
 port's package is not beside this script.
@@ -180,9 +186,11 @@ MAX_MS_COST_REL = 2e-4
 MAX_MS_DP_M = 5e-4
 # serving: two PVIO engines behind one host loop on the first SERVE_FRAMES
 # frames of the planes-on room stream (engine 0: phase 6's seed; engine 1:
-# SERVE_SEED), each held bit for bit to its solo sequential run
-SERVE_FRAMES = 60
+# SERVE_SEED, a SERVE_SECONDS scene: its length fixes the room's random
+# draws), each held bit for bit to its solo sequential run
+SERVE_FRAMES = 50
 SERVE_SEED = 679
+SERVE_SECONDS = 3.05
 # card vs CPU chain, both float32: the kernel, cuBLAS and the CPU round
 # differently, and a KLT/RANSAC/detection decision can flip on a hair.
 # Measured on an H100 (700 W): agreement 1.0, median |dkp| 7.6e-6 px,
@@ -203,16 +211,23 @@ MAX_KF_ACCEPTED_DIFF = 1
 MAX_KF_PRIOR_REL = 5e-2
 # the facade phase: scene length (s), the golden tier's ATE bound
 # (tests/test_golden_run.py:88), the frames of the card-vs-CPU run and its
-# bound on positions while every host decision of the two runs agrees
+# bound on positions while every host decision of the two runs agrees.
+# Every run of the phase initializes at frame 35 of its stream on an H100
+# and takes a keyframe step every ~5 frames after it; each is cut to a
+# depth that keeps its initializing call and at least two keyframe steps
 FACADE_SECONDS = 4.5
 FACADE_MAX_ATE_M = 0.10
 FACADE_CPU_FRAMES = 50
-# the min_free-0 pair runs the first FACADE_FAST_FRAMES frames
-FACADE_FAST_FRAMES = 60
-# the planes-on facade runs the same FACADE_SECONDS stream (its first plane
-# enters the window after frame 48 of 90 on an H100) and must hold at
-# least PLANES_MIN_TRACKS plane tracks after some call
+# the planes-off pairs run the first FACADE_FAST_FRAMES frames
+FACADE_FAST_FRAMES = 50
+# the planes-on pair runs the first FACADE_PLANES_FRAMES frames of the same
+# stream (its first plane enters the window after frame 48 on an H100) and
+# must hold at least PLANES_MIN_TRACKS plane tracks after some call
+FACADE_PLANES_FRAMES = 70
 PLANES_MIN_TRACKS = 10
+# the golden-shaped run drives the first GOLDEN_FRAMES frames of its
+# FACADE_SECONDS stream
+GOLDEN_FRAMES = 70
 # the CLI on the card: `python -m pvio_torch.run synthetic`, sequential and
 # --fast (blob frames at 320x240, float32, planes on, the production init
 # scale gate: not a golden run), each held to the golden tier's 0.10 m since
@@ -224,6 +239,9 @@ PLANES_MIN_TRACKS = 10
 # the CPU reads at float32 and float64.
 CLI_MAX_ATE_M = 0.10
 CLI_TIMEOUT_S = 400
+# the CLI's runs stop after the first CLI_MAX_FRAMES frames of its scene
+# (`--max-frames`; it initializes at frame 44 of 80)
+CLI_MAX_FRAMES = 64
 # card vs CPU facade over FACADE_CPU_FRAMES frames: positions until the
 # first host decision that differs. Measured on an H100 (700 W): no
 # decision differs; float32 2.2e-5 m at initialization, 5.1e-4 m from the
@@ -834,9 +852,10 @@ def _render_room(args):
     return (img * 255.0 + 0.5).astype(np.uint8)
 
 
-def facade_inputs(cfg, duration=FACADE_SECONDS, seed=648):
-    """The scene and its frames rendered as a textured room at the config's
-    size, uint8, in a pool of worker processes."""
+def facade_inputs(cfg, duration=FACADE_SECONDS, seed=648, n_frames=None):
+    """The scene and its first n_frames frames (all by default) rendered as
+    a textured room at the config's size, uint8, in a pool of worker
+    processes."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -845,7 +864,7 @@ def facade_inputs(cfg, duration=FACADE_SECONDS, seed=648):
     scene = synthetic.make_scene(duration=duration, fps=20.0, imu_rate=200.0, n_points=8,
                                  seed=seed)
     jobs = [(scene, fi, cfg.K, cfg.image_size, np.asarray(cfg.q_bc), np.asarray(cfg.p_bc))
-            for fi in range(len(scene.frame_t))]
+            for fi in range(len(scene.frame_t) if n_frames is None else n_frames)]
     workers = max(1, min(len(jobs), os.cpu_count() or 1))
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
         images = list(ex.map(_render_room, jobs))
@@ -923,9 +942,9 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
     at its time; the first n_frames frames, or all) with K1's count zeroed
     just before; `fused_preint` overrides the BA's preintegration bank
     (the card's is the struct-of-arrays one). Returns the run's record:
-    trajectory, initialization frame, re-inits, keyframe steps, K1, S1,
-    E1 and E2 launches, poses before the final drain, the plane stages' log, the
-    decisions after each call and the host ms of every track_camera call
+    trajectory, initialization frame, re-inits, keyframe steps, K1 (and of
+    them its float64 form's), S1, E1 and E2 launches, poses before the
+    final drain, the plane stages' log, the decisions after each call and the host ms of every track_camera call
     with its state (before / initializing / tracking / keyframe: a
     keyframe step ran in the call)."""
     from pvio_torch import PVIO, golden_run
@@ -957,7 +976,7 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
         if "state" not in init and vio.initialized:
             init["state"] = [np.array(x) for x in vio.core.frontend.swt.latest_state]
 
-    stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
+    stencil.LAUNCHES = stencil.LAUNCHES_F64 = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
     eigh_op.BLOCK_LAUNCHES.clear()
     rec = golden_run.drive(vio, scene, images.__getitem__, on_frame=on_frame,
                            n_frames=n_frames, kf_calls=kf_calls)
@@ -966,7 +985,7 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
 
         torch.cuda.synchronize()
     launches, s1_launches, e1_launches = stencil.LAUNCHES, poisson.LAUNCHES, eigh_op.LAUNCHES
-    e2_launches = dict(eigh_op.BLOCK_LAUNCHES)
+    k1_f64_launches, e2_launches = stencil.LAUNCHES_F64, dict(eigh_op.BLOCK_LAUNCHES)
     n_before_drain = len(vio.core.outputs)
     traj = vio.get_trajectory()
     swt = vio.core.frontend.swt
@@ -977,7 +996,8 @@ def run_facade(cfg, scene, images, device=None, n_frames=None, fused_preint=None
     return dict(traj=traj, init_fi=rec["init_fi"], init_state=init.get("state"), planes=planes,
                 n_reinits=vio.core.frontend.n_reinits,
                 initialized=vio.initialized, keyframes=swt.n_keyframes if swt else 0,
-                kf_steps=rec["kf_steps"], launches=launches, s1_launches=s1_launches,
+                kf_steps=rec["kf_steps"], launches=launches, k1_f64_launches=k1_f64_launches,
+                s1_launches=s1_launches,
                 e1_launches=e1_launches, e2_launches=e2_launches, n_frames=rec["n_frames"],
                 n_before_drain=n_before_drain, calls=rec["calls"], decisions=decided,
                 hub=vio.core.hub is not None,
@@ -1063,8 +1083,9 @@ def check_planes(rec, what):
 
 
 def run_cli(fast):
-    """`python -m pvio_torch.run synthetic --output <tmp>` (planes on, on the
-    card, float32 as the preset is), with `--fast --view3d <tmp>` when
+    """`python -m pvio_torch.run synthetic --output <tmp> --max-frames
+    CLI_MAX_FRAMES` (planes on, on the card, float32 as the preset is),
+    with `--fast --view3d <tmp>` when
     `fast`, in a subprocess. Raises unless it exits 0, writes one TUM line
     per pose it reports, prints an ATE within CLI_MAX_ATE_M and, with
     --view3d, writes a non-empty 3D viewer page (numpy and json only; the
@@ -1076,13 +1097,15 @@ def run_cli(fast):
 
     from pvio_torch.io import synthetic
 
-    n_frames = len(synthetic.make_scene(duration=4.0, n_points=320).frame_t)  # run.py's scene
+    n_frames = min(CLI_MAX_FRAMES,   # of run.py's scene
+                   len(synthetic.make_scene(duration=4.0, n_points=320).frame_t))
     with tempfile.TemporaryDirectory() as tmp:
         out, page = Path(tmp) / "trajectory.tum", Path(tmp) / "map.html"
         env = dict(os.environ, PYTHONPATH=str(ROOT))
         flags = ["--fast", "--view3d", str(page)] if fast else []
         proc = subprocess.run([sys.executable, "-m", "pvio_torch.run", "synthetic", "--output",
-                               str(out), *flags], cwd=ROOT, env=env,
+                               str(out), "--max-frames", str(CLI_MAX_FRAMES), *flags],
+                              cwd=ROOT, env=env,
                               capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
         if proc.returncode != 0:
             raise RuntimeError(f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
@@ -1108,9 +1131,10 @@ def run_cli(fast):
 
 
 def golden_phase():
-    """The golden harness's pieces on config/tum-vi.yaml at float32 over a
-    FACADE_SECONDS stream: the Config from the YAML (512x512, equidistant),
-    the frames rendered in a pool and undistorted, `golden_run.drive` on the
+    """The golden harness's pieces on config/tum-vi.yaml at float32 over the
+    first GOLDEN_FRAMES frames of a FACADE_SECONDS stream: the Config from
+    the YAML (512x512, equidistant), those frames rendered in a pool and
+    undistorted, `golden_run.drive` on the
     card with K1's, S1's, E1's and E2's counts zeroed just before and read
     just after, and the readout. Raises unless the run initialized, never
     re-initialized, launched K1 once per frame and kept its ATE under
@@ -1127,13 +1151,14 @@ def golden_phase():
     cfg = golden_run.build_config(args)
     scene = golden_run.make_scene(args)
     t0 = time.perf_counter()
-    images = golden_run.render_images(scene, cfg, args)
+    images = golden_run.render_images(scene, cfg, args, frames=range(GOLDEN_FRAMES))
     render_s = time.perf_counter() - t0
     vio = PVIO(cfg)
     stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
     eigh_op.BLOCK_LAUNCHES.clear()
     t0 = time.perf_counter()
-    rec = golden_run.drive(vio, scene, golden_run.image_source(images, scene, cfg, args))
+    rec = golden_run.drive(vio, scene, golden_run.image_source(images, scene, cfg, args),
+                           n_frames=GOLDEN_FRAMES)
     torch.cuda.synchronize()
     rec.update(seconds=time.perf_counter() - t0, render_s=render_s, launches=stencil.LAUNCHES,
                s1_launches=poisson.LAUNCHES, e1_launches=eigh_op.LAUNCHES,
@@ -1437,8 +1462,8 @@ def serving_phase(scene0, images0, solo0, cfg_kw):
     waits and synchronising calls by kind."""
     import torch
 
-    scene1, images1 = facade_inputs(facade_config(**cfg_kw), duration=(SERVE_FRAMES + 1) / 20.0,
-                                    seed=SERVE_SEED)
+    scene1, images1 = facade_inputs(facade_config(**cfg_kw), duration=SERVE_SECONDS,
+                                    seed=SERVE_SEED, n_frames=SERVE_FRAMES)
     scenes, images = (scene0, scene1), (images0, images1)
     torch.use_deterministic_algorithms(True)
     try:
@@ -1520,6 +1545,14 @@ def main():
     from pvio_torch.utils import cuda_build
 
     t_start = time.perf_counter()
+    marks = [("1", t_start)]                 # (phase, its start on the host clock)
+
+    def phase(n):
+        """Mark the start of phase n, logging the seconds of the one before."""
+        now = time.perf_counter()
+        log(f"[{marks[-1][0]}] phase {marks[-1][0]}: {now - marks[-1][1]:.1f} s")
+        marks.append((str(n), now))
+
     dev = torch.device("cuda")
     smi = gpu_line()
     kind = torch.cuda.get_device_name(0)
@@ -1546,6 +1579,7 @@ def main():
     H, W = host["images"].shape[1:]
 
     # 2. K1 against its plain version -----------------------------------------
+    phase(2)
     pyr0 = kern.preprocess(host["images"][0])
     g = torch.Generator(device="cpu").manual_seed(648)
     th, tw = stencil.TILE
@@ -1588,7 +1622,7 @@ def main():
         (f"uniform {h}x{w_}", torch.rand(h, w_, generator=g64, dtype=torch.float64).to(dev))
         for h, w_ in [(480, 752), (481, 755), (3, 5)]] + [
         ("misaligned view 480x752", flat64[1:].view(480, 752))]
-    stages = set()
+    stages, k1_f64_err = set(), 0.0
     for name, img in k1_f64_cases:
         plan = stencil.launch_plan(*img.shape, img.data_ptr(), itemsize=8)
         if stencil.kernel_plan(*img.shape, img.data_ptr(), itemsize=8) != plan:
@@ -1605,6 +1639,7 @@ def main():
         if not (err <= lim and torch.isfinite(out).all()):
             raise RuntimeError(f"K1 float64 disagrees with its plain version on {name}: "
                                f"{err} > {lim}")
+        k1_f64_err = max(k1_f64_err, err)
         log(f"[2] K1 float64 {name} {tuple(img.shape)}: load stage "
             f"{'tma' if plan.tma else 'threads'}, max|kernel - plain| = {err:.3e} "
             f"(limit {lim:.3e})")
@@ -1616,9 +1651,10 @@ def main():
     k1_f64_plain = device_ms(lambda: detect.shi_tomasi_response(img64))
     nbytes, nflops = stencil.cost(*img64.shape, itemsize=8)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nflops / FP64_FLOPS_PER_S * 1e3
+    k1_f64_bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     log(f"[2] K1 float64 at {tuple(img64.shape)}: device {k1_f64_ms:.6f} ms/launch, plain "
-        f"version {k1_f64_plain:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms "
-        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes} B, {nflops} flop)")
+        f"version {k1_f64_plain:.6f} ms, bound {k1_f64_bound[0]:.6f} ms ({k1_f64_bound[1]}: "
+        f"{nbytes} B, {nflops} flop); max|kernel - plain| over its cases {k1_f64_err:.3e}")
     img0 = pyr0[0].contiguous()
     r_k, r_p = stencil.shi_tomasi_response(img0), detect.shi_tomasi_response(img0)
     xy_k, m_k = kern.detect(img0, torch.zeros(1, 2, device=dev), torch.zeros(1, dtype=torch.bool, device=dev), r_k)
@@ -1820,6 +1856,7 @@ def main():
     torch.cuda.synchronize()
 
     # 3. the main path ---------------------------------------------------------
+    phase(3)
     stencil.LAUNCHES = poisson.LAUNCHES = eigh_op.LAUNCHES = 0
     eigh_op.BLOCK_LAUNCHES.clear()
     rec = run_chain(kern, w, host, N_FRAMES)
@@ -1861,6 +1898,7 @@ def main():
             f"{r['cost'][1]:.6g}, {r['accepted']} accepted steps), marg_step {r['marg_ms']:.3f} ms")
 
     # 4. the keyframe, chained and fed from the host ------------------------------
+    phase(4)
     from pvio_torch.estimation import ba as ba_mod
 
     wk, args, (tri_depth, tri_ok), tri_mask_host, life, slot = keyframe_inputs(
@@ -1926,6 +1964,7 @@ def main():
         + ", ".join(f"{k} {v:.3f}" for k, v in kf_ms.items()))
 
     # 5. card vs CPU -------------------------------------------------------------
+    phase(5)
     torch.set_num_threads(max(1, os.cpu_count() or 1))
     t0 = time.perf_counter()
     rec_cpu = run_chain(DeviceKernels(cfg, device="cpu"), w, host, N_FRAMES)
@@ -1958,8 +1997,10 @@ def main():
         raise RuntimeError("card and CPU keyframes of the port disagree beyond the stated bounds")
 
     # 6. the facade ---------------------------------------------------------------
+    phase(6)
     t0 = time.perf_counter()
-    scene, images = facade_inputs(facade_config())
+    scene, images = facade_inputs(facade_config(), n_frames=max(
+        FACADE_FAST_FRAMES, FACADE_PLANES_FRAMES, FACADE_CPU_FRAMES, SERVE_FRAMES))
     log(f"[6] rendered {len(images)} frames {images[0].shape} uint8 in "
         f"{time.perf_counter() - t0:.1f} s")
     # Config()'s detect-skip (feature_tracker_detect_min_free 8) caps the
@@ -1970,7 +2011,8 @@ def main():
     pairs = (("Config() detect-skip", {}, FACADE_FAST_FRAMES),
              ("detection on every frame", dict(feature_tracker_detect_min_free=0),
               FACADE_FAST_FRAMES),
-             ("planes on, Config() detect-skip", dict(enable_plane_constraint=True), None))
+             ("planes on, Config() detect-skip", dict(enable_plane_constraint=True),
+              FACADE_PLANES_FRAMES))
     runs = {}
     torch.use_deterministic_algorithms(True)
     try:
@@ -2040,6 +2082,14 @@ def main():
                 and (dt == "float32" or flip is None)):
             raise RuntimeError(f"the card and the CPU facade runs at {dt} disagree beyond the "
                                "stated bounds")
+        if dt == "float64":
+            # every K1 launch of the float64 engine is the float64 form's
+            launches["shi_tomasi_f64"] = card["k1_f64_launches"]
+            log(f"[6]   K1's float64 form: {card['k1_f64_launches']} launches of the card run's "
+                f"{card['launches']} K1 launches in {card['n_frames']} frames")
+            if not 0 < card["k1_f64_launches"] == card["launches"]:
+                raise RuntimeError(f"the float64 card run launched K1's float64 form "
+                                   f"{card['k1_f64_launches']} times of {card['launches']}")
 
     # the CLI on the card, in a process of its own: sequential, then --fast
     for fast in (False, True):
@@ -2075,6 +2125,7 @@ def main():
         f"{'tma' if stencil.launch_plan(*img512_run.shape, img512_run.data_ptr()).tma else 'threads'}")
 
     # 7. many sequences: the vmapped chain -----------------------------------------
+    phase(7)
     t0 = time.perf_counter()
     ms = multi_seq_phase(cfg)
     launches.update(ms["launches"])
@@ -2097,6 +2148,7 @@ def main():
           f"ms per group each); phase {time.perf_counter() - t0:.1f} s")
 
     # 8. many sequences: the served fleet -------------------------------------------
+    phase(8)
     t0 = time.perf_counter()
     sv = serving_phase(scene, images, recs[4],
                        dict(enable_plane_constraint=True, fused_keyframe=True))
@@ -2118,6 +2170,7 @@ def main():
         raise RuntimeError(f"find_plane still synchronises in served ticks (fault F3): {f3}")
 
     # 9. the sharded BA on the card --------------------------------------------------
+    phase(9)
     t0 = time.perf_counter()
     sh = sharded_phase()
     log(f"[9] sharded BA, a world of one over NCCL (tp = dp = 1), BASELINE config 5's window "
@@ -2134,6 +2187,7 @@ def main():
         f"equal; phase {time.perf_counter() - t0:.1f} s")
 
     # 10. summary ----------------------------------------------------------------
+    phase(10)
     def entry(name, route, source, replaces, n, err, t, plain, bound, library=None):
         return dict(name=name, route=route, source=source, replaces=replaces, launches=n,
                     max_abs_err=err, ms=t, plain_ms=plain, bound_ms=bound[0],
@@ -2144,6 +2198,8 @@ def main():
     kernels = [
         entry("shi_tomasi", "cuda", k1_src, "pvio_tpu/ops/stencil.py:28", launches["shi_tomasi"],
               k1_err_main, k1_ms, plain_ms, (bound_ms, bound_by)),
+        entry("shi_tomasi_f64", "cuda", k1_src, "pvio_tpu/ops/stencil.py:28",
+              launches["shi_tomasi_f64"], k1_f64_err, k1_f64_ms, k1_f64_plain, k1_f64_bound),
         entry("shi_tomasi_512", "cuda", k1_src, "pvio_tpu/ops/stencil.py:28",
               launches["shi_tomasi_512"], k1_512_err, k1_512_ms, k1_512_plain, k1_512_bound),
         entry("shi_tomasi_batched", "cuda", k1_src, "pvio_tpu/ops/stencil.py:28",
@@ -2176,7 +2232,11 @@ def main():
         kernels.append(entry(name, "cuda", e2_src, e2_replaces, n, e2[key]["err"], e2[key]["ms"],
                              e2[key]["plain_ms"], e2[key]["bound"],
                              library=e2[key]["plain_ms"]))   # torch.linalg.eigh, as for E1
-    log(f"[10] total {time.perf_counter() - t_start:.1f} s")
+    end = time.perf_counter()
+    phase_s = {n: t1 - t0 for (n, t0), (_, t1) in zip(marks, marks[1:] + [(None, end)])}
+    phase_s["total"] = end - t_start
+    log(f"[10] phase 10: {phase_s['10']:.1f} s; total {phase_s['total']:.1f} s")
+    print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

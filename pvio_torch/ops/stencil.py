@@ -27,7 +27,8 @@ the grid and whether the tile arrives by TMA or by per-thread loads. The
 CUDA launcher (`pvio_shi_tomasi_plan`) follows the same rule.
 
 `LAUNCHES` counts kernel launches (one for a whole stack), so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; `LAUNCHES_F64` counts
+those of them that launched the float64 form.
 """
 
 import contextlib
@@ -41,6 +42,7 @@ from pvio_torch.utils import cuda_build
 
 SOURCE = cuda_build.CSRC / "shi_tomasi.cu"
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 _LIB = None
 
 # floating-point operations per output pixel: Scharr x and y (9 each),
@@ -121,7 +123,7 @@ def shi_tomasi_response_cuda(img):
     """Launch K1 once on a contiguous CUDA tensor of one (H, W) image or a
     (..., H, W) stack, in `compute_dtype(img.dtype)`; returns the responses
     in img's dtype."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     if img.device.type != "cuda":
         raise ValueError(f"shi_tomasi_response_cuda: needs a CUDA tensor, got {img.device}")
     if img.dim() < 2:
@@ -146,6 +148,8 @@ def shi_tomasi_response_cuda(img):
     if err != 0:
         raise RuntimeError(f"shi_tomasi kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    if cdt == torch.float64:
+        LAUNCHES_F64 += 1
     return out if img.dtype == cdt else out.to(img.dtype)
 
 
